@@ -1,0 +1,170 @@
+"""The fused key kernel: box blur, leaf codes and Sobel candidates in one
+pass, emitting the matcher's sentinel-packed sort keys.
+
+``fused_keys`` is the wrapper.  On a CUDA tensor it launches the kernel of
+``csrc/fused_keys.cu`` (built at first use by ``ops._build``) and raises on
+any failure; on a CPU tensor it runs ``fused_keys_plain``, the same math as
+whole-image tensor ops, written after ``opengpc_tpu.ops.fused``'s
+``tile_codes_and_cand`` with the image as one tile.  ``fused_keys.launches``
+counts kernel launches, so a run can show that it went through the kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from opengpc_tpu_torch.forest import MAX_TESTS, PATCH_HALF, FilterMask
+from opengpc_tpu_torch.ops.preprocess import (CANDIDATE_MARGIN, _sobel_nums,
+                                              require_u8)
+
+PAD = PATCH_HALF + 1       # 13-px code halo + 1-px box/Sobel halo
+MARGIN = CANDIDATE_MARGIN  # candidate interior margin
+
+
+def _tests_array(mask: FilterMask) -> np.ndarray:
+    """(T, 5) int32 rows of (iy, ix, jy, jx, tau): what the kernel's
+    launcher reads and passes to the kernel by value."""
+    return np.ascontiguousarray(np.concatenate(
+        [mask.i_off, mask.j_off, mask.tau[:, None]], axis=1), dtype=np.int32)
+
+
+def mask_tests(mask: FilterMask):
+    """The forest's tests as a tuple of python ints (iy, ix, jy, jx, tau)."""
+    return tuple(map(tuple, _tests_array(mask).tolist()))
+
+
+def fused_keys_plain(img: torch.Tensor, mask: FilterMask,
+                     gradient_threshold: int, pos_base: int,
+                     sentinel_base: int, pack_bits: int = 0) -> torch.Tensor:
+    """Plain-PyTorch twin of the kernel on (..., H, W) uint8 -> int32:
+    ``candidate ? code : sentinel_base + pos_base + x``, or
+    ``(code << pack_bits) | (pos_base + x)`` for candidates when
+    ``pack_bits > 0``."""
+    require_u8(img)
+    h, w = img.shape[-2:]
+    dev = img.device
+    x32 = F.pad(img.to(torch.int32), (PAD, PAD, PAD, PAD))
+    hc, wc = h + 26, w + 26  # code-support region: image rows -13 .. h+12
+
+    # box 3x3 on the code-support region; region (r, c) = image
+    # (r - 13, c - 13) = padded (r + 1, c + 1)
+    total = torch.zeros(img.shape[:-2] + (hc, wc), dtype=torch.int32,
+                        device=dev)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            total += x32[..., 1 + dy:1 + dy + hc, 1 + dx:1 + dx + wc]
+    blurred = torch.div(total, 9, rounding_mode="floor")
+    rr = torch.arange(hc, dtype=torch.int32, device=dev)[:, None]
+    cc = torch.arange(wc, dtype=torch.int32, device=dev)[None, :]
+    # valid box region 1 <= y <= h-3, 2 <= x <= w-2, in region coordinates
+    box_valid = (rr >= 14) & (rr <= h + 10) & (cc >= 15) & (cc <= w + 11)
+    smooth = torch.where(box_valid, blurred, torch.zeros_like(blurred))
+
+    code = torch.zeros(img.shape, dtype=torch.int32, device=dev)
+    for iy, ix, jy, jx, tau in mask_tests(mask):
+        a = smooth[..., 13 + iy:13 + iy + h, 13 + ix:13 + ix + w]
+        b = smooth[..., 13 + jy:13 + jy + h, 13 + jx:13 + jx + w]
+        code = code * 2 + (a > b - tau).to(torch.int32)
+
+    sx, sy = _sobel_nums(
+        lambda dy, dx: x32[..., PAD + dy:PAD + dy + h, PAD + dx:PAD + dx + w])
+    grad = sx * sx + sy * sy > int(gradient_threshold) ** 2
+    yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    interior = (yy >= MARGIN) & (yy < h - MARGIN) & (xx >= MARGIN) & (xx < w - MARGIN)
+    pos = xx + int(pos_base)
+    cand_key = (code << int(pack_bits)) | pos if pack_bits else code
+    return torch.where(grad & interior, cand_key, pos + int(sentinel_base))
+
+
+def _check_args(mask: FilterMask, pack_bits: int) -> None:
+    if not 1 <= mask.num_tests <= MAX_TESTS:
+        raise ValueError(f"the key kernel takes 1..{MAX_TESTS} tests, got "
+                         f"{mask.num_tests}")
+    if max(np.abs(mask.i_off).max(), np.abs(mask.j_off).max()) > PATCH_HALF:
+        raise ValueError(f"test offsets beyond +-{PATCH_HALF} px")
+    if not 0 <= pack_bits <= 30:
+        raise ValueError(f"pack_bits must be in 0..30, got {pack_bits}")
+
+
+def _launch(img: torch.Tensor, out: torch.Tensor, col_offset: int,
+            mask: FilterMask, gradient_threshold: int, pos_base: int,
+            sentinel_base: int, pack_bits: int) -> None:
+    """Launch the CUDA kernel: keys of the (B, H, W) batch ``img`` into
+    columns [col_offset, col_offset + W) of the (B, H, Wout) int32 ``out``,
+    on the current stream, without synchronizing."""
+    from opengpc_tpu_torch.ops._build import cuda_error_string, load_library
+
+    if not img.is_cuda:
+        raise ValueError(f"fused_keys: no kernel for {img.device} tensors")
+    if not (img.is_contiguous() and out.is_contiguous()):
+        raise ValueError("fused_keys: image and output must be contiguous")
+    if out.dtype != torch.int32 or out.dim() != 3:
+        raise ValueError("fused_keys: output must be a (B, H, Wout) int32 "
+                         "tensor")
+    b, h, w = img.shape
+    if out.shape[0] != b or out.shape[1] != h or col_offset + w > out.shape[2]:
+        raise ValueError(f"fused_keys: output {tuple(out.shape)} cannot "
+                         f"hold {tuple(img.shape)} at column {col_offset}")
+    tests = _tests_array(mask)
+    lib = load_library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ogpc_fused_keys(
+            img.data_ptr(), out.data_ptr(), b, h, w, out.shape[2],
+            out.shape[1] * out.shape[2], col_offset, tests.ctypes.data,
+            tests.shape[0], int(gradient_threshold) ** 2, int(pos_base),
+            int(sentinel_base), int(pack_bits), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_keys kernel launch failed: CUDA error {rc} "
+                           f"({cuda_error_string(rc)})")
+    fused_keys.launches += 1
+
+
+def fused_keys_into(img: torch.Tensor, out: torch.Tensor, col_offset: int,
+                    mask: FilterMask, gradient_threshold: int, pos_base: int,
+                    sentinel_base: int, pack_bits: int = 0) -> None:
+    """Write the keys of a (B, H, W) uint8 batch into columns
+    [col_offset, col_offset + W) of the (B, H, Wout) int32 ``out``: the
+    kernel for a CUDA tensor, the plain twin for a CPU one."""
+    require_u8(img)
+    _check_args(mask, pack_bits)
+    if img.dim() != 3:
+        raise ValueError(f"expected a (B, H, W) batch, got {tuple(img.shape)}")
+    if out.device != img.device:
+        raise ValueError(f"fused_keys: image on {img.device}, output on "
+                         f"{out.device}")
+    if img.device.type == "cpu":
+        w = img.shape[-1]
+        out[..., col_offset:col_offset + w] = fused_keys_plain(
+            img, mask, gradient_threshold, pos_base, sentinel_base, pack_bits)
+        return
+    _launch(img.contiguous(), out, col_offset, mask, gradient_threshold,
+            pos_base, sentinel_base, pack_bits)
+
+
+def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,
+               pos_base: int, sentinel_base: int,
+               pack_bits: int = 0) -> torch.Tensor:
+    """(H, W) int32 sentinel-packed matcher sort keys of an (H, W) uint8
+    image in one fused pass:
+    ``candidate ? leaf_code : sentinel_base + pos_base + x``.
+
+    ``pos_base`` is 0 for the source image and W for the target, so the
+    concatenated (H, 2W) key image has unique per-row sentinels.
+    ``pack_bits > 0`` emits candidates already pos-packed for the
+    single-operand sort (``match._pack_keypos``'s layout; the caller must
+    satisfy ``match._pack_ok``)."""
+    require_u8(img)
+    if img.dim() != 2:
+        raise ValueError(f"expected an (H, W) image, got {tuple(img.shape)}")
+    out = torch.empty((1,) + tuple(img.shape), dtype=torch.int32,
+                      device=img.device)
+    fused_keys_into(img[None], out, 0, mask, gradient_threshold, pos_base,
+                    sentinel_base, pack_bits)
+    return out[0]
+
+
+fused_keys.launches = 0
