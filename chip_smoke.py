@@ -2,12 +2,18 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the checkout, holds the fused key kernel
-against its plain-PyTorch twin bit for bit, drives the one-call
-``sparsematch`` (the masked epipolar main path) at 436x1024, checks its
-supports against the true disparity, the CPU pipeline and the native
-oracle (``cpp/build/oracle``), and times the kernel, the pipeline and the
-host decode with CUDA events.  Every phase prints one JSON line; the last
+Builds the CUDA kernels from the checkout and holds each of them (fused
+keys, fused codes, bitonic row sort, fused match) against its
+plain-PyTorch twin bit for bit.  Then it drives every level-1 route of the
+one-call ``sparsematch`` at 436x1024: the masked epipolar route, the
+global-rows route at the library's default settings, and four cases of the
+flat route; and the selectable variants (fused match, bitonic sort) and
+``extract_descriptors``.  Each path runs with every launch counter at 0
+and is read right after, so the run shows which kernels it went through.
+Supports are checked against the native oracle (``cpp/build/oracle``),
+the CPU pipeline and, where the mode allows, the true disparity.  Last it
+times the kernels against their twins and the routes per pair with CUDA
+events and ``torch.profiler``.  Every phase prints one JSON line; the last
 line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits non-zero before doing
 anything.
@@ -33,6 +39,21 @@ FORESTS = ("defaultZeroForest", "defaultTauForest")
 MIN_ACCURACY = 0.99
 KERNEL_SHAPES = ((436, 1024), (37, 130), (129, 1023), (1080, 1920),
                  (2160, 3840))
+MATCH_SHAPES = ((436, 1024), (37, 130), (129, 1023), (1080, 1920))
+KERNELS = {  # name -> (wrapper module, source, the TPU kernel it replaces)
+    "fused_keys": ("opengpc_tpu_torch.ops.fused",
+                   "opengpc_tpu_torch/csrc/fused_keys.cu",
+                   "opengpc_tpu/ops/fused.py:203"),
+    "fused_codes": ("opengpc_tpu_torch.ops.fused",
+                    "opengpc_tpu_torch/csrc/fused_codes.cu",
+                    "opengpc_tpu/ops/fused.py:186"),
+    "bitonic_sort_rows": ("opengpc_tpu_torch.ops.sort",
+                          "opengpc_tpu_torch/csrc/bitonic_sort.cu",
+                          "opengpc_tpu/ops/sort.py:68"),
+    "fused_sparsematch_rows": ("opengpc_tpu_torch.ops.fused_match",
+                               "opengpc_tpu_torch/csrc/fused_match.cu",
+                               "opengpc_tpu/ops/fused_match.py:52"),
+}
 
 
 def emit(phase, **fields):
@@ -44,6 +65,47 @@ def smi_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def wrapper(name):
+    import importlib
+
+    return getattr(importlib.import_module(KERNELS[name][0]), name)
+
+
+class Launches:
+    """Launch counts of the paths: ``run`` sets every kernel's counter to
+    0, drives one path, synchronizes and reads the counters, and adds them
+    to ``total``.  Launches made elsewhere (kernel vs twin, timing) are
+    never counted."""
+
+    def __init__(self):
+        self.total = dict.fromkeys(KERNELS, 0)
+
+    def run(self, fn):
+        for name in KERNELS:
+            wrapper(name).launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {name: wrapper(name).launches for name in KERNELS}
+        for name, n in counts.items():
+            self.total[name] += n
+        return out, counts
+
+
+def forest_paths(td):
+    """The shipped forests' files, and a 32-test forest written with the
+    port's ``save_forest``: the six ferns of defaultTauForest, then the six
+    of defaultZeroForest (60 tests, which inference cuts to 32 in file
+    order, as the oracle does)."""
+    from opengpc_tpu_torch.forest import Forest, load_forest, save_forest
+
+    paths = {f: os.path.join(REPO, "forests", f + ".txt") for f in FORESTS}
+    both = Forest(load_forest(paths["defaultTauForest"]).ferns
+                  + load_forest(paths["defaultZeroForest"]).ferns)
+    paths["tests32"] = os.path.join(td, "tests32.txt")
+    save_forest(both, paths["tests32"])
+    return paths
 
 
 def structured_image(rng, h, w):
@@ -211,7 +273,7 @@ def oracle_gate(oracle, left, right, forest_file, supports, settings):
             [oracle, "sparsematch", forest_file, lp, rp, op,
              str(settings.gradient_threshold),
              str(settings.vertical_tolerance), str(settings.disp_high),
-             "1", "0"], check=True)
+             str(int(settings.epipolar_mode)), "0"], check=True)
         with open(op) as f:
             want = {tuple(int(v) for v in ln.split()) for ln in f if ln.strip()}
     got = set(map(tuple, supports.tolist()))
@@ -225,12 +287,11 @@ def accuracy(supports):
     return float((supports[:, 2] == TRUE_DISP).mean()) if len(supports) else 0.0
 
 
-def phase_main_path(oracle):
-    """The one-call sparsematch on the card.  Resets the launch counter,
-    drives every main-path call, reads the counter, then checks."""
+def phase_main_path(oracle, launches):
+    """The masked route of the one-call sparsematch on the card, driven as
+    one path with the launch counters at 0, then checked."""
     from opengpc_tpu_torch import (InferenceSettings, load_forest,
                                    make_filter_mask, sparsematch)
-    from opengpc_tpu_torch.ops.fused import fused_keys
     from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
 
     settings = InferenceSettings(**SETTINGS_KW)
@@ -244,27 +305,27 @@ def phase_main_path(oracle):
         "sparse": [make_sparse_pair(H, W, TRUE_DISP, density=0.15,
                                     seed=100 + b) for b in range(4)]}
 
-    fused_keys.launches = 0
     single, batched, per_pair, small17 = {}, {}, {}, {}
-    for scene, (left, right) in scenes.items():
-        for f in FORESTS:
-            single[scene, f] = sparsematch(left, right, paths[f], settings,
-                                           device="cuda")
-        small17[scene] = sparsematch(left, right, mask17, settings,
-                                     device="cuda")
-        pairs = batches[scene]
-        batched[scene] = sparsematch(np.stack([p[0] for p in pairs]),
-                                     np.stack([p[1] for p in pairs]),
-                                     paths["defaultZeroForest"], settings,
-                                     device="cuda")
-        per_pair[scene] = [sparsematch(l, r, paths["defaultZeroForest"],
-                                       settings, device="cuda")
-                           for l, r in pairs]
-    torch.cuda.synchronize()
-    launches = fused_keys.launches
 
+    def drive():
+        for scene, (left, right) in scenes.items():
+            for f in FORESTS:
+                single[scene, f] = sparsematch(left, right, paths[f],
+                                               settings, device="cuda")
+            small17[scene] = sparsematch(left, right, mask17, settings,
+                                         device="cuda")
+            pairs = batches[scene]
+            batched[scene] = sparsematch(np.stack([p[0] for p in pairs]),
+                                         np.stack([p[1] for p in pairs]),
+                                         paths["defaultZeroForest"], settings,
+                                         device="cuda")
+            per_pair[scene] = [sparsematch(l, r, paths["defaultZeroForest"],
+                                           settings, device="cuda")
+                               for l, r in pairs]
+
+    counts = launches.run(drive)[1]
     failures, report = [], {}
-    if launches == 0:
+    if counts["fused_keys"] == 0:
         failures.append("the main path launched no fused_keys kernel")
     for (scene, f), sup in single.items():
         left, right = scenes[scene]
@@ -295,10 +356,9 @@ def phase_main_path(oracle):
             equals_single=same, true_disparity_share=accs)
         if not (same and min(accs) > MIN_ACCURACY):
             failures.append(f"{scene}/batch4: {report[f'{scene}/batch4']}")
-    emit("main_path", launches=launches, checks=report, failures=failures)
+    emit("main_path", launches=counts, checks=report, failures=failures)
     if failures:
         raise SystemExit(f"main path failed: {failures}")
-    return launches
 
 
 def phase_times(smi):
@@ -377,6 +437,400 @@ def phase_times(smi):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def kernel_masks(paths):
+    """The kernel-vs-twin masks: both shipped forests, the zero forest cut
+    to 17 tests, the 32-test forest and three random masks."""
+    from opengpc_tpu_torch import load_forest, make_filter_mask
+
+    masks = {"zero": make_filter_mask(load_forest(paths["defaultZeroForest"])),
+             "tau": make_filter_mask(load_forest(paths["defaultTauForest"])),
+             "zero17": make_filter_mask(
+                 load_forest(paths["defaultZeroForest"]), max_tests=17),
+             "tests32": make_filter_mask(load_forest(paths["tests32"]))}
+    for i, m in enumerate(random_masks()):
+        masks[f"random{i}_{m.num_tests}t"] = m
+    return masks
+
+
+def max_err(got, want):
+    """Largest absolute difference of two equally shaped tensors."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def finish_vs_twin(name, cases, worst, failures):
+    emit(f"{name}_vs_twin", cases=cases, max_abs_err=worst,
+         failures=failures[:10])
+    if failures:
+        raise SystemExit(f"{name} disagrees with its twin: {failures[:10]}")
+    return worst
+
+
+def phase_codes_vs_twin(masks):
+    """fused_codes vs its twin on the card: codes and candidates bit for
+    bit, at every kernel shape and mask, at thresholds 5 and 10, and as a
+    (4, H, W) batch."""
+    from opengpc_tpu_torch.ops.fused import fused_codes, fused_codes_plain
+
+    rng = np.random.default_rng(8)
+    worst, cases, failures = 0, 0, []
+    for h, w in KERNEL_SHAPES:
+        img = torch.from_numpy(structured_image(rng, h, w)).cuda()
+        for name, mask in masks.items():
+            for thr in (5, 10):
+                codes, cand = fused_codes(img, mask, thr)
+                want_c, want_v = fused_codes_plain(img, mask, thr)
+                err = max(max_err(codes, want_c), max_err(cand, want_v))
+                worst, cases = max(worst, err), cases + 1
+                if err or not want_v.any():
+                    failures.append((h, w, name, thr, err))
+    batch = torch.from_numpy(np.stack(
+        [structured_image(rng, H, W) for _ in range(4)])).cuda()
+    for name, mask in masks.items():
+        codes, cand = fused_codes(batch, mask, 5)
+        want_c, want_v = fused_codes_plain(batch, mask, 5)
+        err = max(max_err(codes, want_c), max_err(cand, want_v))
+        worst, cases = max(worst, err), cases + 1
+        if err:
+            failures.append(("batch4", name, err))
+    torch.cuda.synchronize()
+    return finish_vs_twin("fused_codes", cases, worst, failures)
+
+
+def phase_sort_vs_twin(masks):
+    """bitonic_sort_rows vs its twin on the card: keys and payloads bit
+    for bit, on signed keys with many duplicates at N from 256 to 16384
+    (odd row counts), and on the real 436x1024 key image (2W = 2048)."""
+    from opengpc_tpu_torch import InferenceSettings
+    from opengpc_tpu_torch.infer import _key_image
+    from opengpc_tpu_torch.ops.sort import (bitonic_sort_rows,
+                                            bitonic_sort_rows_plain)
+    from opengpc_tpu_torch.utils import make_pair
+
+    rng = np.random.default_rng(9)
+    inputs = []
+    for n, rows in ((256, 7), (1024, 33), (2048, 101), (8192, 17),
+                    (16384, 3)):
+        pool = rng.integers(-(1 << 31), 1 << 31, n // 4, dtype=np.int64)
+        key = pool.astype(np.int32)[rng.integers(0, n // 4, (rows, n))]
+        pay = rng.permutation(rows * n).reshape(rows, n).astype(np.int32)
+        inputs.append((f"random_{rows}x{n}", torch.from_numpy(key).cuda(),
+                       torch.from_numpy(pay).cuda()))
+    left, right = (torch.from_numpy(a).cuda()
+                   for a in make_pair(H, W, TRUE_DISP))
+    key = _key_image(left, right, masks["zero"],
+                     InferenceSettings(**SETTINGS_KW))
+    pos = torch.arange(2 * W, dtype=torch.int32, device="cuda")
+    inputs.append(("key_image_436x2048", key,
+                   pos.expand(H, -1).contiguous()))
+    worst, cases, failures = 0, 0, []
+    for name, key, pay in inputs:
+        got_k, got_p = bitonic_sort_rows(key, pay)
+        want_k, want_p = bitonic_sort_rows_plain(key, pay)
+        err = max(max_err(got_k, want_k), max_err(got_p, want_p),
+                  max_err(got_k, torch.sort(key, dim=1).values))
+        worst, cases = max(worst, err), cases + 1
+        if err:
+            failures.append((name, err))
+    torch.cuda.synchronize()
+    return finish_vs_twin("bitonic_sort_rows", cases, worst, failures)
+
+
+def phase_fused_match_vs_twin(masks):
+    """fused_sparsematch_rows vs its twin on the card: keep, src_x and d
+    bit for bit, at four shapes up to 1080x1920, with both shipped
+    forests."""
+    from opengpc_tpu_torch.ops.fused_match import (
+        fused_sparsematch_rows, fused_sparsematch_rows_plain)
+    from opengpc_tpu_torch.utils import make_pair
+
+    worst, cases, failures, kept = 0, 0, [], {}
+    for h, w in MATCH_SHAPES:
+        left, right = (torch.from_numpy(a).cuda()
+                       for a in make_pair(h, w, TRUE_DISP, seed=h))
+        for name in ("zero", "tau"):
+            got = fused_sparsematch_rows(left, right, masks[name], 5, 128)
+            want = fused_sparsematch_rows_plain(left, right, masks[name], 5,
+                                                128)
+            err = max(max_err(g, w_) for g, w_ in zip(got, want))
+            worst, cases = max(worst, err), cases + 1
+            kept[f"{h}x{w}/{name}"] = int(want[0].sum())
+            if err or not want[0].any():
+                failures.append((h, w, name, err))
+    torch.cuda.synchronize()
+    emit("fused_match_keeps", kept=kept)
+    return finish_vs_twin("fused_sparsematch_rows", cases, worst, failures)
+
+
+def check_supports(oracle, left, right, forest_file, sup, cpu, settings,
+                   gate_disparity):
+    """(ok, report) of one route's supports: the oracle gate, equality with
+    the CPU pipeline, and, where ``gate_disparity``, the true-disparity
+    share > MIN_ACCURACY (reported either way)."""
+    ok_gate, gate = oracle_gate(oracle, left, right, forest_file, sup,
+                                settings)
+    acc = accuracy(sup)
+    same_cpu = cpu is None or bool(np.array_equal(sup, cpu))
+    ok = ok_gate and same_cpu and (acc > MIN_ACCURACY or not gate_disparity)
+    return ok, dict(gate, true_disparity_share=acc, equals_cpu=same_cpu)
+
+
+def route_cases():
+    """The one-call routes at 436x1024: (name, settings, forest, expected
+    route, kernels that must launch, gate on the true disparity)."""
+    from opengpc_tpu_torch import InferenceSettings
+
+    cap = H * W  # the default 32768 would truncate a dense scene
+    return [
+        ("global-rows/zero", InferenceSettings(), "defaultZeroForest",
+         "global-rows", ("fused_keys",), False),
+        ("global-rows/tau", InferenceSettings(), "defaultTauForest",
+         "global-rows", ("fused_keys",), False),
+        ("flat/epipolar/32-tests",
+         InferenceSettings(capacity=cap, **SETTINGS_KW), "tests32", "flat",
+         ("fused_codes",), True),
+        ("flat/global/32-tests", InferenceSettings(capacity=cap), "tests32",
+         "flat", ("fused_codes",), False),
+        ("flat/global/disp_high-1024",
+         InferenceSettings(disp_high=1024, capacity=cap),
+         "defaultZeroForest", "flat", ("fused_codes",), False),
+        ("flat/epipolar/disp_high-2^20",
+         InferenceSettings(disp_high=1 << 20, capacity=cap, **SETTINGS_KW),
+         "defaultZeroForest", "flat", ("fused_keys",), False),
+    ]
+
+
+def phase_routes(oracle, paths, launches):
+    """Every level-1 route of the one-call sparsematch at 436x1024 on the
+    dense and the sparse scene, each driven as one path with the launch
+    counters at 0, then held to the oracle gate and to the same call on
+    the CPU.  A (4, H, W) batch of each must equal four single calls."""
+    from opengpc_tpu_torch import load_forest, make_filter_mask, sparsematch
+    from opengpc_tpu_torch.infer import route
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    scenes = {"dense": make_pair(H, W, TRUE_DISP),
+              "sparse": make_sparse_pair(H, W, TRUE_DISP, density=0.15)}
+    pairs = [make_pair(H, W, TRUE_DISP, seed=200 + b) for b in range(4)]
+    lefts = np.stack([p[0] for p in pairs])
+    rights = np.stack([p[1] for p in pairs])
+    failures, report, all_counts = [], {}, {}
+    for name, settings, forest, want_route, must, gate_d in route_cases():
+        mask = make_filter_mask(load_forest(paths[forest]))
+        got_route = route(mask, (H, W), settings)
+
+        def drive():
+            out = {s: sparsematch(l, r, paths[forest], settings,
+                                  device="cuda")
+                   for s, (l, r) in scenes.items()}
+            out["batch4"] = sparsematch(lefts, rights, paths[forest],
+                                        settings, device="cuda")
+            return out
+
+        out, counts = launches.run(drive)
+        all_counts[name] = counts
+        if got_route != want_route:
+            failures.append(f"{name}: route {got_route}, not {want_route}")
+        failures += [f"{name}: no {k} launch" for k in must if not counts[k]]
+        for scene, (left, right) in scenes.items():
+            cpu = sparsematch(left, right, paths[forest], settings,
+                              device="cpu")
+            ok, rep = check_supports(oracle, left, right, paths[forest],
+                                     out[scene], cpu, settings, gate_d)
+            report[f"{name}/{scene}"] = rep
+            if not ok:
+                failures.append(f"{name}/{scene}: {rep}")
+        singles = [sparsematch(l, r, paths[forest], settings, device="cuda")
+                   for l, r in pairs]
+        same = all(np.array_equal(a, b) for a, b in zip(out["batch4"],
+                                                          singles))
+        report[f"{name}/batch4"] = dict(
+            supports=[len(s) for s in out["batch4"]], equals_single=same)
+        if not same:
+            failures.append(f"{name}/batch4 differs from single calls")
+    emit("routes", launches=all_counts, checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"routes failed: {failures}")
+
+
+def phase_variants(oracle, paths, masks, launches):
+    """The selectable variants at 436x1024 with both shipped forests: the
+    fused match (``_sparsematch_impl(fused_match=True)``) and the bitonic
+    row sort (``match_epipolar(packed=True, sort_impl="bitonic")``) give
+    the default flat path's support set and pass the oracle gate; each
+    runs as one path with the launch counters at 0."""
+    from opengpc_tpu_torch import InferenceSettings, supports_to_numpy
+    from opengpc_tpu_torch.infer import _codes_and_candidates, _sparsematch_impl
+    from opengpc_tpu_torch.match import match_epipolar
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    settings = InferenceSettings(capacity=H * W, **SETTINGS_KW)
+    scenes = {"dense": make_pair(H, W, TRUE_DISP),
+              "sparse": make_sparse_pair(H, W, TRUE_DISP, density=0.15)}
+
+    def bitonic(l, r, mask):
+        cl, vl = _codes_and_candidates(l, mask, settings)
+        cr, vr = _codes_and_candidates(r, mask, settings)
+        (xs, ys, ds), count = match_epipolar(
+            cl, cr, vl, vr, settings.disp_high, settings.capacity,
+            packed=True, sort_impl="bitonic", num_tests=mask.num_tests)
+        return xs, ys, ds, count
+
+    variants = {
+        "default": lambda l, r, m: _sparsematch_impl(l, r, m, settings),
+        "fused_match": lambda l, r, m: _sparsematch_impl(
+            l, r, m, settings, fused_match=True),
+        "bitonic": bitonic}
+    must = {"fused_match": "fused_sparsematch_rows",
+            "bitonic": "bitonic_sort_rows"}
+    failures, report, all_counts = [], {}, {}
+    for forest, mname in (("defaultZeroForest", "zero"),
+                          ("defaultTauForest", "tau")):
+        for scene, (left, right) in scenes.items():
+            l_d, r_d = (torch.from_numpy(a).cuda() for a in (left, right))
+            sets = {}
+            for vname, fn in variants.items():
+                out, counts = launches.run(lambda: supports_to_numpy(
+                    *fn(l_d, r_d, masks[mname])))
+                key = f"{vname}/{forest}/{scene}"
+                all_counts[key] = counts
+                sets[vname] = set(map(tuple, out.tolist()))
+                ok, rep = check_supports(oracle, left, right, paths[forest],
+                                         out, None, settings, False)
+                report[key] = rep
+                if not ok:
+                    failures.append(f"{key}: {rep}")
+                if vname in must and not counts[must[vname]]:
+                    failures.append(f"{key}: no {must[vname]} launch")
+                if sets[vname] != sets["default"]:
+                    failures.append(f"{key}: support set differs from the "
+                                    "default flat path's")
+    emit("variants", launches=all_counts, checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"variants failed: {failures}")
+
+
+def phase_descriptors(paths, masks, launches):
+    """extract_descriptors at 436x1024 on the card equals its CPU run, for
+    the 32-test forest and defaultZeroForest."""
+    from opengpc_tpu_torch import InferenceSettings, extract_descriptors
+    from opengpc_tpu_torch.utils import make_pair
+
+    left, _ = make_pair(H, W, TRUE_DISP)
+    settings = InferenceSettings(gradient_threshold=5)
+    failures, report = [], {}
+    for name in ("tests32", "zero"):
+        got, counts = launches.run(lambda: extract_descriptors(
+            left, masks[name], settings, device="cuda"))
+        want = extract_descriptors(left, masks[name], settings, device="cpu")
+        same = bool(np.array_equal(got, want))
+        report[name] = dict(descriptors=len(got), equals_cpu=same,
+                            launches=counts)
+        if not same or not len(got) or not counts["fused_codes"]:
+            failures.append(f"{name}: {report[name]}")
+    emit("descriptors", checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"descriptors failed: {failures}")
+
+
+def kernel_vs_plain_times(kernel, plain, k_iters, p_iters):
+    """Events ms per call in turns (plain, kernel, kernel, plain) and the
+    profiler's device ms per call of each, on one card."""
+    p1 = cuda_ms(plain, p_iters)
+    k1 = cuda_ms(kernel, k_iters)
+    k2 = cuda_ms(kernel, k_iters)
+    p2 = cuda_ms(plain, p_iters)
+    pk = device_profile(kernel, max(5, k_iters // 10))
+    pp = device_profile(plain, max(3, p_iters // 5))
+    return dict(events_ms=[k1, k2], plain_events_ms=[p1, p2],
+                device_ms=pk["device_ms"], plain_device_ms=pp["device_ms"],
+                kernels=pk["kernels"][:4], plain_kernels=pp["kernels"][:4],
+                ms=pk["device_ms"] or (k1 + k2) / 2,
+                plain_ms=pp["device_ms"] or (p1 + p2) / 2)
+
+
+def phase_new_times(smi, masks):
+    """The new kernels against their twins at the main-path shapes, the
+    bitonic sort against torch.sort on the matcher rows, and ms per pair of
+    the global-rows route, the flat route (32 tests) and the fused-match
+    and bitonic variants (zero forest) at B=1 and B=4."""
+    from opengpc_tpu_torch import (InferenceSettings, build_sparsematch,
+                                   build_sparsematch_global_rows)
+    from opengpc_tpu_torch.infer import (_codes_and_candidates, _interior_rows,
+                                         _key_image, _sparsematch_impl)
+    from opengpc_tpu_torch.match import match_epipolar
+    from opengpc_tpu_torch.ops.fused import fused_codes, fused_codes_plain
+    from opengpc_tpu_torch.ops.fused_match import (
+        fused_sparsematch_rows, fused_sparsematch_rows_plain)
+    from opengpc_tpu_torch.ops.sort import (bitonic_sort_rows,
+                                            bitonic_sort_rows_plain)
+    from opengpc_tpu_torch.utils import make_pair
+
+    left, right = make_pair(H, W, TRUE_DISP)
+    l_d, r_d = torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda()
+    zero, t32 = masks["zero"], masks["tests32"]
+    epi = InferenceSettings(capacity=H * W, **SETTINGS_KW)
+    times = {}
+    times["fused_codes"] = kernel_vs_plain_times(
+        lambda: (fused_codes(l_d, t32, 5), fused_codes(r_d, t32, 5)),
+        lambda: (fused_codes_plain(l_d, t32, 5),
+                 fused_codes_plain(r_d, t32, 5)), 200, 20)
+    key = _interior_rows(_key_image(l_d, r_d, zero, epi))[0].contiguous()
+    pos = torch.arange(2 * W, dtype=torch.int32,
+                       device="cuda").expand(key.shape[0], -1).contiguous()
+    times["bitonic_sort_rows"] = kernel_vs_plain_times(
+        lambda: bitonic_sort_rows(key, pos),
+        lambda: bitonic_sort_rows_plain(key, pos), 200, 20)
+    times["bitonic_sort_rows"]["torch_sort_ms"] = [
+        cuda_ms(lambda: torch.sort(key, dim=1, stable=False), 200)
+        for _ in range(2)]
+    times["bitonic_sort_rows"]["rows"] = list(key.shape)
+    times["fused_sparsematch_rows"] = kernel_vs_plain_times(
+        lambda: fused_sparsematch_rows(l_d, r_d, zero, 5, 128),
+        lambda: fused_sparsematch_rows_plain(l_d, r_d, zero, 5, 128), 200,
+        20)
+    emit("kernel_times", card=smi, shape=[H, W], **times)
+
+    pairs = [make_pair(H, W, TRUE_DISP, seed=300 + b) for b in range(4)]
+    lb = torch.from_numpy(np.stack([p[0] for p in pairs])).cuda()
+    rb = torch.from_numpy(np.stack([p[1] for p in pairs])).cuda()
+    global_rows = build_sparsematch_global_rows(zero, InferenceSettings(),
+                                                device="cuda")
+    flat32 = build_sparsematch(t32, epi, device="cuda")
+    flat_zero = build_sparsematch(zero, epi, device="cuda")
+
+    def per_pair(fn):
+        return lambda l, r: [fn(l[i], r[i]) for i in range(l.shape[0])] \
+            if l.dim() == 3 else fn(l, r)
+
+    def bitonic(l, r):
+        cl, vl = _codes_and_candidates(l, zero, epi)
+        cr, vr = _codes_and_candidates(r, zero, epi)
+        return match_epipolar(cl, cr, vl, vr, epi.disp_high, epi.capacity,
+                              packed=True, sort_impl="bitonic",
+                              num_tests=zero.num_tests)
+
+    pipelines = {
+        "global_rows/zero": global_rows,
+        "flat/epipolar/32-tests": flat32,
+        "flat/epipolar/zero": flat_zero,
+        "fused_match/zero": per_pair(lambda l, r: _sparsematch_impl(
+            l, r, zero, epi, fused_match=True)),
+        "bitonic/zero": per_pair(bitonic)}
+    route_times, profiles = {}, {}
+    for name, fn in pipelines.items():
+        route_times[name] = dict(
+            ms_per_pair_b1=[cuda_ms(lambda: fn(l_d, r_d), 50)
+                            for _ in range(2)],
+            ms_per_pair_b4=[cuda_ms(lambda: fn(lb, rb), 20) / 4
+                            for _ in range(2)])
+        profiles[name] = device_profile(lambda: fn(l_d, r_d), 20)
+    emit("route_profile", card=smi, **profiles)
+    emit("route_times", card=smi, shape=[H, W], **route_times)
+    return {name: (t["ms"], t["plain_ms"]) for name, t in times.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -386,16 +840,30 @@ def main():
 
     smi = phase_device()
     phase_build()
-    max_err = phase_kernel_vs_twin()
-    launches = phase_main_path(build_oracle())
-    k_ms, p_ms = phase_times(smi)
+    with tempfile.TemporaryDirectory() as td:
+        paths = forest_paths(td)
+        masks = kernel_masks(paths)
+        errs = {"fused_keys": phase_kernel_vs_twin(),
+                "fused_codes": phase_codes_vs_twin(masks),
+                "bitonic_sort_rows": phase_sort_vs_twin(masks),
+                "fused_sparsematch_rows": phase_fused_match_vs_twin(masks)}
+        oracle = build_oracle()
+        launches = Launches()
+        phase_main_path(oracle, launches)
+        phase_routes(oracle, paths, launches)
+        phase_variants(oracle, paths, masks, launches)
+        phase_descriptors(paths, masks, launches)
+        times = {"fused_keys": phase_times(smi)}
+        times.update(phase_new_times(smi, masks))
+    missing = [k for k, n in launches.total.items() if n == 0]
+    if missing:
+        raise SystemExit(f"no path launched {missing}")
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
-        "name": "fused_keys", "route": "cuda",
-        "source": "opengpc_tpu_torch/csrc/fused_keys.cu",
-        "replaces": "opengpc_tpu/ops/fused.py:203",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms}]}), flush=True)
+        "name": name, "route": "cuda", "source": KERNELS[name][1],
+        "replaces": KERNELS[name][2], "launches": launches.total[name],
+        "max_abs_err": errs[name], "ms": times[name][0],
+        "plain_ms": times[name][1]} for name in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,29 +1,43 @@
 """PyTorch/CUDA port of opengpc_tpu: GPC sparse stereo matching on an
 NVIDIA H100.
 
-So far the port runs the masked epipolar contract end to end: the fused
-key kernel (CUDA C++, ``csrc/fused_keys.cu``), the per-row sort, pair
-detection and masked emit, and the host decode.  It imports torch and
-numpy and never JAX; importing it builds and loads no kernel.
+The one-call ``sparsematch`` runs every level-1 route of the JAX package:
+the masked epipolar contract, the global-rows contract (the library
+defaults: global mode, gradient threshold 10) and the flat contract (any
+forest of <= 32 tests, either mode), with the hand-written CUDA kernels of
+``csrc/`` (fused keys, fused codes, bitonic row sort, fused match).  It
+imports torch and numpy and never JAX; importing it builds and loads no
+kernel.
 
 >>> from opengpc_tpu_torch import InferenceSettings, sparsematch
->>> supports = sparsematch(left, right, "forests/defaultZeroForest.txt",
-...                        InferenceSettings(gradient_threshold=5,
-...                                          epipolar_mode=True))
+>>> supports = sparsematch(left, right, "forests/defaultZeroForest.txt")
+>>> cli = sparsematch(left, right, "forests/defaultZeroForest.txt",
+...                   InferenceSettings(gradient_threshold=5,
+...                                     epipolar_mode=True))
 """
 
 from opengpc_tpu_torch.config import InferenceSettings
 from opengpc_tpu_torch.forest import (filter_mask_from_numpy, load_forest,
                                       make_filter_mask)
-from opengpc_tpu_torch.infer import (build_sparsematch_masked,
-                                     masked_supports_to_numpy, sparsematch)
+from opengpc_tpu_torch.infer import (build_sparsematch,
+                                     build_sparsematch_global_rows,
+                                     build_sparsematch_masked,
+                                     extract_descriptors,
+                                     global_row_supports_to_numpy,
+                                     masked_supports_to_numpy, sparsematch,
+                                     supports_to_numpy)
 
 __all__ = [
     "InferenceSettings",
+    "build_sparsematch",
+    "build_sparsematch_global_rows",
     "build_sparsematch_masked",
+    "extract_descriptors",
     "filter_mask_from_numpy",
+    "global_row_supports_to_numpy",
     "load_forest",
     "make_filter_mask",
     "masked_supports_to_numpy",
     "sparsematch",
+    "supports_to_numpy",
 ]

@@ -10,8 +10,8 @@ import dataclasses
 class InferenceSettings:
     """Settings for sparse matching.
 
-    ``capacity`` sizes the flat contract's support buffer; the masked
-    contract, the only one this package runs so far, does not read it.
+    ``capacity`` sizes the flat contract's support buffer; the masked and
+    global-rows contracts do not read it.
     """
 
     gradient_threshold: int = 10

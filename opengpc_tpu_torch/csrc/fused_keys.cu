@@ -14,8 +14,9 @@
 // Design.  One block computes a 32x64 output tile.  It stages the tile's
 // (32+28) x (64+28) uint8 window in shared memory (zeros outside the image),
 // box-blurs the (32+26) x (64+26) code-support region into a second shared
-// array, zeroing by global coordinates, and after a barrier each thread
-// evaluates the tests and the Sobel for its pixels from shared memory.  The
+// array, zeroing by global coordinates (tile_codes.cuh's CodeTile, shared
+// with the other code kernels), and after a barrier each thread evaluates
+// the tests and the Sobel for its pixels from shared memory.  The
 // blurred image never reaches device memory.  Tests arrive by value in the
 // kernel's parameter space (no device allocation, no per-call copy); every
 // thread reads the same test at once, which the constant bank broadcasts.
@@ -35,28 +36,16 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tile_codes.cuh"
+
 namespace {
 
-constexpr int kMaxTests = 32;
-constexpr int kHalo = 13;                 // code offsets reach +-13 px
-constexpr int kPad = kHalo + 1;           // plus the box/Sobel 1-px halo
-constexpr int kMargin = 13;               // candidate interior margin
+using ogpc::CodeTile;
+using ogpc::Tests;
+
 constexpr int kTileH = 32;
 constexpr int kTileW = 64;
-constexpr int kThreadsY = 8;              // block = (kTileW, kThreadsY)
-constexpr int kRawH = kTileH + 2 * kPad;  // 60
-constexpr int kRawW = kTileW + 2 * kPad;  // 92
-constexpr int kBoxH = kTileH + 2 * kHalo; // 58
-constexpr int kBoxW = kTileW + 2 * kHalo; // 90
-
-struct Tests {
-  int n;
-  int iy[kMaxTests];
-  int ix[kMaxTests];
-  int jy[kMaxTests];
-  int jx[kMaxTests];
-  int tau[kMaxTests];
-};
+constexpr int kThreadsY = 8;  // block = (kTileW, kThreadsY)
 
 __global__ void __launch_bounds__(kTileW * kThreadsY)
 fused_keys_kernel(const uint8_t* __restrict__ img, int32_t* __restrict__ out,
@@ -64,39 +53,14 @@ fused_keys_kernel(const uint8_t* __restrict__ img, int32_t* __restrict__ out,
                   int col_offset, const __grid_constant__ Tests tests,
                   int thr2, int pos_base,
                   int sentinel_base, int pack_bits) {
-  __shared__ uint8_t raw[kRawH][kRawW];       // image (y0-14 .., x0-14 ..)
-  __shared__ uint8_t smooth[kBoxH][kBoxW];    // image (y0-13 .., x0-13 ..)
+  __shared__ CodeTile<kTileH, kTileW> tile;
 
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTileW;
-  const uint8_t* src = img + static_cast<size_t>(b) * h * w;
   const int tid = threadIdx.y * kTileW + threadIdx.x;
-  constexpr int kThreads = kTileW * kThreadsY;
-
-  for (int i = tid; i < kRawH * kRawW; i += kThreads) {
-    const int r = i / kRawW, c = i % kRawW;
-    const int gy = y0 + r - kPad, gx = x0 + c - kPad;
-    raw[r][c] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
-                    ? src[static_cast<size_t>(gy) * w + gx] : 0;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < kBoxH * kBoxW; i += kThreads) {
-    const int r = i / kBoxW, c = i % kBoxW;
-    const int gy = y0 + r - kHalo, gx = x0 + c - kHalo;
-    int v = 0;
-    if (gy >= 1 && gy <= h - 3 && gx >= 2 && gx <= w - 2) {
-      int s = 0;
-#pragma unroll
-      for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) s += raw[r + dy][c + dx];
-      v = s / 9;  // s >= 0: truncation is the floor
-    }
-    smooth[r][c] = static_cast<uint8_t>(v);
-  }
-  __syncthreads();
+  tile.stage(img + static_cast<size_t>(b) * h * w, h, w, y0, x0, tid,
+             kTileW * kThreadsY);
 
   const int tx = threadIdx.x;
   const int x = x0 + tx;
@@ -105,30 +69,10 @@ fused_keys_kernel(const uint8_t* __restrict__ img, int32_t* __restrict__ out,
   for (int ty = threadIdx.y; ty < kTileH; ty += kThreadsY) {
     const int y = y0 + ty;
     if (y >= h) break;
-    uint32_t code = 0;
-    // unrolled, so every test field is an immediate constant-bank operand
-#pragma unroll
-    for (int t = 0; t < kMaxTests; ++t) {
-      if (t < tests.n) {
-        const int a = smooth[ty + kHalo + tests.iy[t]][tx + kHalo + tests.ix[t]];
-        const int bb = smooth[ty + kHalo + tests.jy[t]][tx + kHalo + tests.jx[t]];
-        code = code * 2u + (a > bb - tests.tau[t] ? 1u : 0u);
-      }
-    }
-    // Sobel on the raw tile: raw row ty + kPad + dy is image row y + dy
-    auto px = [&](int dy, int dx) {
-      return static_cast<int>(raw[ty + kPad + dy][tx + kPad + dx]);
-    };
-    const int sx_num = px(-1, -1) + px(1, -1) + 2 * px(0, -1)
-                       - px(-1, 1) - 2 * px(0, 1) - px(1, 1);
-    const int sy_num = px(-1, -1) + px(-1, 1) + 2 * px(-1, 0)
-                       - px(1, -1) - 2 * px(1, 0) - px(1, 1);
-    const int sx = sx_num / 9, sy = sy_num / 9;  // C truncation, as wanted
-    const bool cand = sx * sx + sy * sy > thr2 && y >= kMargin &&
-                      y < h - kMargin && x >= kMargin && x < w - kMargin;
+    const uint32_t code = tile.code(ty, tx, tests);
     const int pos = pos_base + x;
     int32_t key;
-    if (!cand)
+    if (!tile.cand(ty, tx, y, x, h, w, thr2))
       key = sentinel_base + pos;
     else if (pack_bits)
       key = static_cast<int32_t>((code << pack_bits) |
@@ -150,24 +94,11 @@ extern "C" int ogpc_fused_keys(const void* img, void* out, int batch, int h,
                                int col_offset, const void* tests, int n_tests,
                                int thr2, int pos_base, int sentinel_base,
                                int pack_bits, void* stream) {
-  if (n_tests < 1 || n_tests > kMaxTests || batch < 0 || h < 0 || w < 0 ||
+  Tests t;
+  if (!ogpc::load_tests(tests, n_tests, &t) || batch < 0 || h < 0 || w < 0 ||
       pack_bits < 0 || pack_bits > 30 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || h == 0 || w == 0) return 0;
-  Tests t{};
-  t.n = n_tests;
-  const int* src = static_cast<const int*>(tests);
-  for (int i = 0; i < n_tests; ++i) {
-    t.iy[i] = src[5 * i + 0];
-    t.ix[i] = src[5 * i + 1];
-    t.jy[i] = src[5 * i + 2];
-    t.jx[i] = src[5 * i + 3];
-    t.tau[i] = src[5 * i + 4];
-    if (t.iy[i] < -kHalo || t.iy[i] > kHalo || t.ix[i] < -kHalo ||
-        t.ix[i] > kHalo || t.jy[i] < -kHalo || t.jy[i] > kHalo ||
-        t.jx[i] < -kHalo || t.jx[i] > kHalo)
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
   const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, batch);
   const dim3 block(kTileW, kThreadsY);
   fused_keys_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(

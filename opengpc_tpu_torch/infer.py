@@ -1,15 +1,26 @@
-"""Sparse-matching inference: the masked epipolar contract.
+"""Sparse-matching inference: every level-1 route of the one-call
+``sparsematch``.
 
-    key image (fused key kernel, both images)   ops.fused.fused_keys
-      -> interior rows [13, H-13)               _interior_rows
-      -> row sort, pair detection, masked emit  match.match_epipolar_masked
-      -> host decode to (x, y, d) supports      masked_supports_to_numpy
+Three output contracts, each an ``nn.Module`` built per forest and
+settings, as in ``opengpc_tpu.infer``:
 
-``build_sparsematch_masked`` returns an ``nn.Module`` whose forward runs
-the device stages; ``sparsematch`` is the one-call entry point.  A
-(B, H, W) batch folds into one (B*H', 2W) row sort.  Other output
-contracts, the pyramid and global mode are not ported yet and raise
-``NotImplementedError``.
+* masked (epipolar, <= 30 tests, 30-bit (x, d) pack):
+  key image (fused key kernel) -> interior rows [13, H-13) -> row sort,
+  pair detection, masked emit -> host decode (``masked_supports_to_numpy``);
+* global rows (global mode, <= 30 tests, 30-bit (y, x, d) pack):
+  key image -> interior rows -> one flat sort for global uniqueness ->
+  segmented pack (``match.match_global_rows``) -> host assembly
+  (``global_row_supports_to_numpy``);
+* flat (everything else): the key image and the packed row sort when the
+  keys are packable in epipolar mode, else codes and candidates (fused code
+  kernel) into ``match.match_epipolar`` or ``match.match_global``; a
+  fixed-capacity (x, y, d) buffer and the true count
+  (``supports_to_numpy``).
+
+``sparsematch`` picks the route as the JAX package does.  A (B, H, W)
+batch folds into one row sort on the masked route and runs pair by pair
+(the JAX package's ``lax.map``) on the others.  The pyramid (``levels >
+1``) and PNG inputs are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,9 +36,12 @@ from torch import nn
 
 from opengpc_tpu_torch.config import InferenceSettings
 from opengpc_tpu_torch.forest import FilterMask, Forest, load_forest, make_filter_mask
-from opengpc_tpu_torch.match import (MASKED_SENTINEL, SENTINEL_BASE,
-                                     match_epipolar_masked)
-from opengpc_tpu_torch.ops.fused import fused_keys_into, mask_tests
+from opengpc_tpu_torch.match import (MASKED_SENTINEL, SENTINEL_BASE, _bits,
+                                     _match_epipolar_packed, _rows_of, compact,
+                                     match_epipolar, match_epipolar_masked,
+                                     match_global, match_global_rows)
+from opengpc_tpu_torch.ops.fused import fused_codes, fused_keys_into, mask_tests
+from opengpc_tpu_torch.ops.fused_match import fused_sparsematch_rows
 from opengpc_tpu_torch.ops.preprocess import CANDIDATE_MARGIN, require_u8
 
 _MARGIN = CANDIDATE_MARGIN
@@ -53,10 +67,17 @@ def _rows_ok(mask: FilterMask, shape, settings: InferenceSettings) -> bool:
     """Masked-contract eligibility: epipolar mode, sentinel-packable codes
     and the (x, d) pack fitting 30 bits."""
     h, w = shape
-    bx = max(1, int(w - 1).bit_length())
-    bd = max(1, int(2 * settings.disp_high).bit_length())
     return (settings.epipolar_mode and _packed_ok(mask, shape)
-            and bx + bd <= 30)
+            and _bits(w - 1) + _bits(2 * settings.disp_high) <= 30)
+
+
+def _global_rows_ok(mask: FilterMask, shape, settings: InferenceSettings) -> bool:
+    """Global-rows eligibility: sentinel-packable codes and the (y, x, d)
+    pack fitting 30 bits."""
+    h, w = shape
+    return (_packed_ok(mask, shape)
+            and _bits(h - 1) + _bits(w - 1) + _bits(2 * settings.disp_high)
+            <= 30)
 
 
 def _interior_rows(key):
@@ -96,6 +117,13 @@ def _key_image(left, right, mask: FilterMask, settings: InferenceSettings):
     return _batched_key_images(left[None], right[None], mask, settings)[0]
 
 
+def _codes_and_candidates(img, mask: FilterMask,
+                          settings: InferenceSettings):
+    """(codes int32, candidates bool) of an (H, W) image: the fused code
+    kernel on a CUDA tensor, its plain twin on a CPU one."""
+    return fused_codes(img, mask, settings.gradient_threshold)
+
+
 def _sparsematch_masked_impl(left, right, mask: FilterMask,
                              settings: InferenceSettings):
     """(buf (H, 2W) int32, row_counts (H,) int32) for one pair, or
@@ -118,13 +146,68 @@ def _sparsematch_masked_impl(left, right, mask: FilterMask,
             _pad_rows(counts, m, -1))
 
 
-class SparsematchMasked(nn.Module):
-    """The masked epipolar matcher for one forest and one settings object.
+def _sparsematch_impl(left, right, mask: FilterMask,
+                      settings: InferenceSettings, fused_match: bool = False):
+    """The flat contract for one (H, W) pair: (xs, ys, ds) (capacity,)
+    int32 buffers and the true support count.
+
+    ``fused_match=True`` runs the fused match kernel
+    (``ops.fused_match.fused_sparsematch_rows``) where it applies (epipolar
+    mode, packable keys) and compacts its windows in flat window order."""
+    if fused_match and settings.epipolar_mode and _packed_ok(mask, left.shape):
+        keep, src_x, d = fused_sparsematch_rows(
+            left, right, mask, settings.gradient_threshold, settings.disp_high)
+        (xs, ys, ds), count = compact(keep, (src_x, _rows_of(keep), d),
+                                      settings.capacity)
+        return xs, ys, ds, count
+    if settings.epipolar_mode and _packed_ok(mask, left.shape):
+        (xs, ys, ds), count = _match_epipolar_packed(
+            None, None, None, None, settings.disp_high, settings.capacity,
+            key=_key_image(left, right, mask, settings),
+            num_tests=mask.num_tests)
+        return xs, ys, ds, count
+    codes_l, cand_l = _codes_and_candidates(left, mask, settings)
+    codes_r, cand_r = _codes_and_candidates(right, mask, settings)
+    if settings.epipolar_mode:
+        (xs, ys, ds), count = match_epipolar(
+            codes_l, codes_r, cand_l, cand_r, settings.disp_high,
+            settings.capacity)
+    else:
+        (xs, ys, ds), count = match_global(
+            codes_l, codes_r, cand_l, cand_r, settings.disp_high,
+            settings.vertical_tolerance, settings.capacity,
+            packed=_packed_ok(mask, left.shape))
+    return xs, ys, ds, count
+
+
+def _sparsematch_global_rows_impl(left, right, mask: FilterMask,
+                                  settings: InferenceSettings):
+    """The global-rows contract for one (H, W) pair:
+    ((xs, ys, ds) (R, C) int32, counts (R,))."""
+    if settings.epipolar_mode:
+        raise ValueError("global row-form output is for global mode")
+    if not _global_rows_ok(mask, tuple(left.shape), settings):
+        raise ValueError(
+            "global row-form output needs <=30-test forests and a 30-bit "
+            "(y, x, d) pack; use build_sparsematch")
+    key, m = _interior_rows(_key_image(left, right, mask, settings))
+    return match_global_rows(key, left.shape[1], settings.disp_high,
+                             settings.vertical_tolerance, y_offset=m)
+
+
+def _stack(outs):
+    """Stack a list of equally nested tuples of tensors along a new axis."""
+    if isinstance(outs[0], tuple):
+        return tuple(_stack(list(o)) for o in zip(*outs))
+    return torch.stack(outs)
+
+
+class _Matcher(nn.Module):
+    """A matcher for one forest and one settings object.
 
     ``forward(left, right)`` takes (H, W) or (B, H, W) uint8 tensors on the
-    module's device and returns device tensors ``(buf, row_counts)``;
-    decode one pair with :func:`masked_supports_to_numpy`.
-    """
+    module's device and returns the contract's device tensors, with a
+    leading batch axis for a batch."""
 
     def __init__(self, mask: FilterMask, settings: InferenceSettings,
                  device="cpu"):
@@ -146,7 +229,37 @@ class SparsematchMasked(nn.Module):
         if left.device != dev or right.device != dev:
             raise ValueError(f"images on {left.device}/{right.device}, "
                              f"matcher on {dev}")
+        return self._run(left, right)
+
+    def _run(self, left, right):
+        """Pair by pair, stacked for a batch: the JAX builders' lax.map."""
+        if left.dim() == 2:
+            return self._pair(left, right, self.mask, self.settings)
+        return _stack([self._pair(l, r, self.mask, self.settings)
+                       for l, r in zip(left, right)])
+
+
+class SparsematchMasked(_Matcher):
+    """The masked epipolar matcher: ``(buf, row_counts)``; decode one pair
+    with :func:`masked_supports_to_numpy`.  A batch folds into one row
+    sort."""
+
+    def _run(self, left, right):
         return _sparsematch_masked_impl(left, right, self.mask, self.settings)
+
+
+class Sparsematch(_Matcher):
+    """The flat matcher: ``(xs, ys, ds, count)``; trim one pair with
+    :func:`supports_to_numpy`."""
+
+    _pair = staticmethod(_sparsematch_impl)
+
+
+class SparsematchGlobalRows(_Matcher):
+    """The global-mode segmented matcher: ``((xs, ys, ds), counts)``;
+    assemble one pair with :func:`global_row_supports_to_numpy`."""
+
+    _pair = staticmethod(_sparsematch_global_rows_impl)
 
 
 def build_sparsematch_masked(forest_or_mask, settings: InferenceSettings,
@@ -160,18 +273,42 @@ def build_sparsematch_masked(forest_or_mask, settings: InferenceSettings,
                              torch.device(device))
 
 
+def build_sparsematch(forest_or_mask, settings: InferenceSettings,
+                      device="cpu") -> Sparsematch:
+    """The flat matcher as an ``nn.Module`` on ``device``: (xs, ys, ds)
+    (capacity,) int32 buffers and the true support count, which may exceed
+    ``settings.capacity`` (the buffers then hold the first ``capacity``).
+    Any forest of <= 32 tests, either mode."""
+    return Sparsematch(_as_mask(forest_or_mask), settings,
+                       torch.device(device))
+
+
+def build_sparsematch_global_rows(forest_or_mask, settings: InferenceSettings,
+                                  device="cpu") -> SparsematchGlobalRows:
+    """The global-mode matcher with segmented row-form output as an
+    ``nn.Module`` on ``device``: the same support set as the flat matcher
+    in global mode, without its compaction sort.  Needs <= 30 tests and a
+    30-bit (y, x, d) pack."""
+    return SparsematchGlobalRows(_as_mask(forest_or_mask), settings,
+                                 torch.device(device))
+
+
+def _numpy(t):
+    """Host copies of a tensor, an array or a nested tuple of them."""
+    if isinstance(t, tuple):
+        return tuple(_numpy(o) for o in t)
+    return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
 def masked_supports_to_numpy(buf, row_counts, disp_high: int) -> np.ndarray:
     """Decode one pair's masked buffer into the (n, 3) int32 (x, y, d)
     support array: row-major, code-sorted within each row."""
-    if isinstance(buf, torch.Tensor):
-        buf = buf.cpu().numpy()
-    if isinstance(row_counts, torch.Tensor):
-        row_counts = row_counts.cpu().numpy()
-    if np.ndim(buf) != 2:
+    buf, row_counts = _numpy(buf), _numpy(row_counts)
+    if buf.ndim != 2:
         raise ValueError(
             "masked_supports_to_numpy takes one pair's (H, 2W) buffer; "
             "index the batch axis first")
-    n = int(np.asarray(row_counts).sum())
+    n = int(row_counts.sum())
     bd = max(1, int(2 * disp_high).bit_length())
     flat = buf.ravel()
     pos = np.flatnonzero(flat != MASKED_SENTINEL)
@@ -184,6 +321,48 @@ def masked_supports_to_numpy(buf, row_counts, disp_high: int) -> np.ndarray:
         raise ValueError(
             f"masked buffer holds {out.shape[0]} supports, row counts say {n}")
     return out
+
+
+def supports_to_numpy(xs, ys, ds, count) -> np.ndarray:
+    """Trim one pair's flat buffers to the (n, 3) int32 (x, y, d) array;
+    supports beyond the capacity are dropped (``count`` tells)."""
+    xs, ys, ds = _numpy(xs), _numpy(ys), _numpy(ds)
+    if xs.ndim != 1:
+        raise ValueError(
+            "supports_to_numpy takes one pair's buffers; index the batch "
+            "axis first")
+    n = min(int(count), xs.shape[0])
+    return np.stack([xs[:n], ys[:n], ds[:n]], axis=1).astype(np.int32)
+
+
+def global_row_supports_to_numpy(xs, ys, ds, counts) -> np.ndarray:
+    """Assemble one pair's global segmented buffers into the (n, 3) int32
+    (x, y, d) array, in (y, x, d)-ascending order."""
+    xs, ys, ds, c = _numpy(xs), _numpy(ys), _numpy(ds), _numpy(counts)
+    if xs.ndim != 2:
+        raise ValueError(
+            "global_row_supports_to_numpy takes one pair's (R, C) buffers; "
+            "index the batch axis first")
+    sel = np.arange(xs.shape[1])[None, :] < c[:, None]
+    out = np.stack([xs[sel], ys[sel], ds[sel]], axis=1).astype(np.int32)
+    return out[np.lexsort((out[:, 2], out[:, 0], out[:, 1]))]
+
+
+def extract_descriptors(img, forest_or_mask, settings: InferenceSettings,
+                        device="cuda") -> np.ndarray:
+    """Per-image descriptor list: an (n, 3) int64 array of (x, y, state)
+    rows, one for every candidate pixel in row-major order, with the leaf
+    code as an unsigned 32-bit state.  ``img`` is one (H, W) uint8 array or
+    tensor; the fused code kernel runs on ``device``."""
+    img = _image_arg(img, torch.device(device))
+    if img.dim() != 2:
+        raise ValueError(f"extract_descriptors takes one (H, W) image, got "
+                         f"shape {tuple(img.shape)}")
+    codes, cand = _codes_and_candidates(img, _as_mask(forest_or_mask),
+                                        settings)
+    ys, xs = np.nonzero(cand.cpu().numpy())
+    states = codes.cpu().numpy().astype(np.uint32)[ys, xs]
+    return np.stack([xs, ys, states.astype(np.int64)], axis=1)
 
 
 class _LruCache:
@@ -269,6 +448,34 @@ def _image_arg(x, device) -> torch.Tensor:
     return x.to(device)
 
 
+def _pair_of(out, i):
+    """Pair i of a batched, nested tuple of arrays."""
+    if isinstance(out, tuple):
+        return tuple(_pair_of(o, i) for o in out)
+    return out[i]
+
+
+def route(mask: FilterMask, shape, settings: InferenceSettings) -> str:
+    """The one-call route of an (H, W) frame: "masked", "global-rows" or
+    "flat", chosen as the JAX package chooses."""
+    if settings.epipolar_mode and _rows_ok(mask, shape, settings):
+        return "masked"
+    if not settings.epipolar_mode and _global_rows_ok(mask, shape, settings):
+        return "global-rows"
+    return "flat"
+
+
+_BUILDERS = {"masked": build_sparsematch_masked,
+             "global-rows": build_sparsematch_global_rows,
+             "flat": build_sparsematch}
+_DECODERS = {
+    "masked": lambda out, s: masked_supports_to_numpy(*out, s.disp_high),
+    "global-rows": lambda out, s: global_row_supports_to_numpy(*out[0],
+                                                               out[1]),
+    "flat": lambda out, s: supports_to_numpy(*out),
+}
+
+
 def sparsematch(left, right, forest_or_mask,
                 settings: Optional[InferenceSettings] = None,
                 device="cuda", levels: int = 1):
@@ -279,9 +486,14 @@ def sparsematch(left, right, forest_or_mask,
     lists of frames) for a batch, which returns a length-B list.
     ``forest_or_mask`` is a ``Forest``, a ``FilterMask`` or a forest file
     path (parsed once and cached).  The device stages run on ``device``;
-    the decode runs on the host.  Only the masked epipolar contract is
-    ported: settings that would take another route raise
-    ``NotImplementedError``.
+    the decode runs on the host.
+
+    The route is the JAX package's: the masked contract in epipolar mode
+    when it applies, the global-rows contract in global mode when it
+    applies, and the flat contract otherwise (more than 30 tests, or a
+    pack wider than 30 bits).  The flat route raises ``ValueError`` when a
+    pair has more supports than ``settings.capacity``.  The pyramid
+    (``levels > 1``) and PNG paths raise ``NotImplementedError``.
     """
     settings = settings if settings is not None else InferenceSettings()
     if levels < 1:
@@ -289,10 +501,6 @@ def sparsematch(left, right, forest_or_mask,
     if levels > 1:
         raise NotImplementedError(
             "the pyramid is not ported yet (ROADMAP queue 1, item 5)")
-    if not settings.epipolar_mode:
-        raise NotImplementedError(
-            "global (non-epipolar) mode is not ported yet (ROADMAP queue 1, "
-            "item 3)")
     if isinstance(forest_or_mask, (str, os.PathLike)):
         forest_or_mask = _load_forest_cached(os.fspath(forest_or_mask))
     mask = _as_mask(forest_or_mask)
@@ -306,19 +514,25 @@ def sparsematch(left, right, forest_or_mask,
         raise ValueError(
             f"sparsematch takes one (H, W) pair or a (B, H, W) batch, got "
             f"shape {tuple(left.shape)}")
-    frame_shape = tuple(left.shape[-2:])
-    if not _rows_ok(mask, frame_shape, settings):
-        raise NotImplementedError(
-            f"{mask.num_tests} tests at {frame_shape} with disp_high "
-            f"{settings.disp_high} fall outside the masked contract (more "
-            "than 30 tests or an (x, d) pack wider than 30 bits); the flat "
-            "contract they need is not ported yet (ROADMAP queue 1, item 2)")
-    key = (_mask_cache_key(mask), settings, device)
+    batched = left.dim() == 3
+    contract = route(mask, tuple(left.shape[-2:]), settings)
+    key = (_mask_cache_key(mask), settings, device, contract)
     fn = _MATCH_FN_CACHE.get_or_add(
-        key, lambda: build_sparsematch_masked(mask, settings, device))
-    buf, rc = fn(left, right)
-    buf, rc = buf.cpu().numpy(), rc.cpu().numpy()
-    if left.dim() == 3:
-        return [masked_supports_to_numpy(buf[i], rc[i], settings.disp_high)
+        key, lambda: _BUILDERS[contract](mask, settings, device))
+    out = _numpy(fn(left, right))
+    if contract == "flat":
+        count = out[3]
+        over = np.flatnonzero(np.atleast_1d(count) > settings.capacity)
+        if over.size:
+            which = (f"pair(s) {over.tolist()} of the batch" if batched
+                     else f"{int(count)} supports")
+            raise ValueError(
+                f"{which} exceed settings.capacity={settings.capacity} on the "
+                "flat contract; raise capacity (these settings are outside "
+                "the packed-key contracts: width/disp_high beyond the 30-bit "
+                "budget, or a >30-test forest)")
+    decode = _DECODERS[contract]
+    if batched:
+        return [decode(_pair_of(out, i), settings)
                 for i in range(left.shape[0])]
-    return masked_supports_to_numpy(buf, rc, settings.disp_high)
+    return decode(out, settings)

@@ -1,10 +1,20 @@
-"""On-device unique-collision matching, epipolar masked contract.
+"""On-device unique-collision matching: the masked and flat epipolar
+contracts and global mode.  Same semantics as ``opengpc_tpu.match``.
 
-Each row of the (R, 2W) key image (source image in columns [0, W), target
-in [W, 2W)) is sorted; a run of exactly two equal keys, one from each
-image, is a support.  Non-candidate pixels carry unique per-position
-sentinel keys >= SENTINEL_BASE, so they never pair and the sort needs no
-validity operand.  Same semantics as ``opengpc_tpu.match``'s masked path.
+Epipolar mode sorts each row of the (R, 2W) key image (source image in
+columns [0, W), target in [W, 2W)); a run of exactly two equal keys, one
+from each image, is a support.  Global mode sorts all keys of the pair in
+one flat sort, so uniqueness spans the whole image pair.  Non-candidate
+pixels carry unique per-position sentinel keys >= SENTINEL_BASE, so they
+never pair and the sort needs no validity operand; forests of 31 or 32
+tests fill all 32 code bits and sort on (invalid, code) instead.
+
+Output contracts: the masked buffer (``match_epipolar_masked``), the flat
+fixed-capacity buffer (``match_epipolar``, ``match_global``: compaction is
+a sort by position or by the packed support, as in the JAX package), and
+the segmented global rows (``match_global_rows``).  The sorts are
+``torch.sort``, the counterpart of XLA's ``lax.sort``; the bitonic row
+sort of ``ops.sort`` is the ``sort_impl="bitonic"`` alternative.
 """
 
 from __future__ import annotations
@@ -14,6 +24,8 @@ import torch.nn.functional as F
 
 SENTINEL_BASE = 0x40000000  # above any <=30-bit leaf code
 MASKED_SENTINEL = 0x7FFFFFFF
+PAD_KEY_BASE = 0x7F000000   # bitonic row padding: above every sentinel
+_INT32_MAX = 0x7FFFFFFF
 
 
 def _pos_bits(w2: int) -> int:
@@ -109,3 +121,277 @@ def match_epipolar_masked(key, disp_high, num_tests):
     key_s, pos_s = _sort_key_pos(key, num_tests)
     keep, src_x, d = _detect_pairs_packed(key_s, pos_s, w, disp_high)
     return _masked_emit(keep, src_x, d, w, disp_high)
+
+
+def _bits(v: int) -> int:
+    return max(1, int(v).bit_length())
+
+
+def _two_key_sort(invalid, code):
+    """Unstable sort along the last axis on (invalid, code) with signed
+    int32 codes, through one order-preserving int64 key.  Returns
+    (invalid_s, code_s, index): code_s is the code offset by 2**31, which
+    orders and compares as the code."""
+    comp = (invalid.to(torch.int64) << 32) + (code.to(torch.int64) + (1 << 31))
+    comp_s, idx = torch.sort(comp, stable=False)
+    return comp_s >> 32, comp_s & 0xFFFFFFFF, idx
+
+
+def _pair_starts(invalid, code, flag):
+    """Over sorted (..., N) keys, the (..., N-1) windows that start a run
+    of exactly two equal valid codes with differing flags."""
+    both_valid = (invalid[..., :-1] == 0) & (invalid[..., 1:] == 0)
+    eq = (code[..., :-1] == code[..., 1:]) & both_valid
+    prev = F.pad(eq[..., :-1], (1, 0))
+    nxt = F.pad(eq[..., 1:], (0, 1))
+    cross = flag[..., :-1] != flag[..., 1:]
+    return eq & ~prev & ~nxt & cross
+
+
+def compact(mask, values, capacity: int):
+    """Gather ``values[mask]`` into fixed-size buffers in flat mask order:
+    one sort by a position key (matched entries keep their flat index,
+    the rest get INT32_MAX).  Returns (compacted values, count); slots from
+    ``count`` on are 0 and entries beyond ``capacity`` are dropped, while
+    ``count`` is the true number of matches."""
+    mask_f = mask.reshape(-1)
+    n = mask_f.shape[0]
+    dev = mask.device
+    count = mask_f.sum(dtype=torch.int32)
+    key = torch.where(mask_f, torch.arange(n, dtype=torch.int32, device=dev),
+                      _INT32_MAX)
+    order = torch.sort(key, stable=False).indices
+    k = min(n, capacity)
+    slot_ok = torch.arange(capacity, device=dev) < count
+    outs = []
+    for v in values:
+        buf = F.pad(v.reshape(-1)[order[:k]], (0, capacity - k))
+        outs.append(torch.where(slot_ok, buf, 0))
+    return tuple(outs), count
+
+
+def compact_packed(mask, fields, capacity: int):
+    """Single-operand sort compaction: every ``(array, n_bits)`` field is
+    bit-packed into the int32 sort key (values offset to [0, 2**n_bits),
+    at most 30 bits in all), so the output is ordered by the packed tuple:
+    row-major (y, x, ...) for the matchers' (y, x, d) layout.  Returns
+    (unpacked fields, count), with the same slot rules as :func:`compact`."""
+    total = sum(b for _, b in fields)
+    if total > 30:
+        raise ValueError(f"packed compaction needs <= 30 bits, got {total}")
+    dev = mask.device
+    key = torch.zeros(mask.shape, dtype=torch.int32, device=dev)
+    for arr, b in fields:
+        key = (key << b) | torch.where(mask, arr.to(torch.int32), 0)
+    key = torch.where(mask, key, _INT32_MAX).reshape(-1)
+    n = key.shape[0]
+    count = mask.sum(dtype=torch.int32)
+    k = min(n, capacity)
+    buf = F.pad(torch.sort(key, stable=False).values[:k], (0, capacity - k),
+                value=_INT32_MAX)
+    slot_ok = torch.arange(capacity, device=dev) < count
+    outs = []
+    shift = total
+    for _, b in fields:
+        shift -= b
+        outs.append(torch.where(slot_ok, (buf >> shift) & ((1 << b) - 1), 0))
+    return tuple(outs), count
+
+
+def _compact_supports(keep, src_x, ycoord, d, capacity, w, h, disp_high):
+    """(x, y, d) support compaction: the packed single-operand sort when
+    y, x and d fit 30 bits, the position sort (flat window order)
+    otherwise."""
+    bx, by, bd = _bits(w - 1), _bits(h - 1), _bits(2 * disp_high)
+    if by + bx + bd <= 30:
+        (ys, xs, dp), count = compact_packed(
+            keep, ((ycoord, by), (src_x, bx), (d + disp_high, bd)), capacity)
+        slot_ok = torch.arange(capacity, device=keep.device) < count
+        return (xs, ys, torch.where(slot_ok, dp - disp_high, 0)), count
+    return compact(keep, (src_x, ycoord, d), capacity)
+
+
+def _rows_of(keep):
+    h = keep.shape[0]
+    return torch.arange(h, dtype=torch.int32,
+                        device=keep.device)[:, None].expand(keep.shape)
+
+
+def match_epipolar(code_src, code_tar, valid_src, valid_tar, disp_high: int,
+                   capacity: int, packed: bool = False,
+                   sort_impl: str = "auto", num_tests=None):
+    """Per-row unique-collision matching of two (H, W) code images into the
+    flat contract: ((x, y, d), count), each of x, y, d a (capacity,) int32
+    buffer, d = x_src - x_tar with |d| <= disp_high.
+
+    ``packed=True`` (codes below 2**30, i.e. <= 30 tests; callers check)
+    gives invalid pixels unique sentinel keys, so each row sorts one key
+    with a position payload; otherwise rows sort on (invalid, code)."""
+    if packed:
+        return _match_epipolar_packed(code_src, code_tar, valid_src,
+                                      valid_tar, disp_high, capacity,
+                                      sort_impl, num_tests=num_tests)
+    h, w = code_src.shape
+    invalid_s, code_s, idx = _two_key_sort(
+        torch.cat([~valid_src, ~valid_tar], dim=1),
+        torch.cat([code_src, code_tar], dim=1))
+    flag_s = idx >= w
+    x_s = (idx - w * flag_s).to(torch.int32)
+    is_match = _pair_starts(invalid_s, code_s, flag_s)
+    # unstable sort: each pair's (src, tar) order comes from the flag
+    src_left = ~flag_s[:, :-1]
+    src_x = torch.where(src_left, x_s[:, :-1], x_s[:, 1:])
+    tar_x = torch.where(src_left, x_s[:, 1:], x_s[:, :-1])
+    d = src_x - tar_x
+    keep = is_match & (d.abs() <= disp_high)
+    return _compact_supports(keep, src_x, _rows_of(keep), d, capacity, w, h,
+                             disp_high)
+
+
+def _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
+                           disp_high: int, capacity: int,
+                           sort_impl: str = "auto", key=None, num_tests=None):
+    """The sentinel-packed flat epipolar matcher, from codes and
+    candidates or from a prebuilt (H, 2W) key image (``key=``, as
+    ``ops.fused.fused_keys`` emits).  ``sort_impl="auto"`` sorts rows with
+    ``torch.sort``; ``"bitonic"`` pads them to N2 = max(256, pow2 >= 2W)
+    with unique keys ``PAD_KEY_BASE + pos`` and runs the bitonic row sort
+    kernel (``ops.sort.bitonic_sort_rows``)."""
+    if capacity is None:
+        raise NotImplementedError(
+            "the row-form contract is not ported yet (ROADMAP queue 1, "
+            "item 2)")
+    if sort_impl not in ("auto", "bitonic"):
+        raise ValueError(f"sort_impl must be 'auto' or 'bitonic', got "
+                         f"{sort_impl!r}")
+    if key is None:
+        h, w = code_src.shape
+        pos = torch.arange(2 * w, dtype=torch.int32, device=code_src.device)
+        key = torch.where(torch.cat([valid_src, valid_tar], dim=1),
+                          torch.cat([code_src, code_tar], dim=1),
+                          SENTINEL_BASE + pos)
+    h, w2 = key.shape
+    w = w2 // 2
+    if sort_impl == "bitonic":
+        from opengpc_tpu_torch.ops.sort import (bitonic_sort_rows,
+                                                padded_row_length)
+
+        n2 = padded_row_length(w)
+        pos = torch.arange(n2, dtype=torch.int32, device=key.device)
+        key = torch.cat([key, (PAD_KEY_BASE + pos[w2:]).expand(h, -1)], dim=1)
+        key_s, pos_s = bitonic_sort_rows(key, pos.expand(h, -1).contiguous())
+    else:
+        key_s, pos_s = _sort_key_pos(key, num_tests)
+    keep, src_x, d = _detect_pairs_packed(key_s, pos_s, w, disp_high)
+    return _compact_supports(keep, src_x, _rows_of(keep), d, capacity, w, h,
+                             disp_high)
+
+
+def _global_pairs(code_src, code_tar, valid_src, valid_tar, packed=False):
+    """The global matchers' flat sort over both images' descriptors:
+    (is_match, src_x, src_y, tar_x, tar_y) windows over the sorted order.
+    ``packed=True`` (codes below 2**30 and 2HW < 2**30) sorts one
+    sentinel-masked key; otherwise the sort is on (invalid, code)."""
+    h, w = code_src.shape
+    n = h * w
+    code = torch.cat([code_src.reshape(-1), code_tar.reshape(-1)])
+    valid = torch.cat([valid_src.reshape(-1), valid_tar.reshape(-1)])
+    if packed:
+        pos = torch.arange(2 * n, dtype=torch.int32, device=code.device)
+        key_s, idx = torch.sort(torch.where(valid, code, SENTINEL_BASE + pos),
+                                stable=False)
+        pos_s = idx.to(torch.int32)
+        eq = key_s[:-1] == key_s[1:]
+        prev = F.pad(eq[:-1], (1, 0))
+        nxt = F.pad(eq[1:], (0, 1))
+        # unstable sort: normalize the (src, tar) order by position
+        lo = torch.minimum(pos_s[:-1], pos_s[1:])
+        hi = torch.maximum(pos_s[:-1], pos_s[1:]) - n
+        is_match = eq & ~prev & ~nxt & (lo < n) & (hi >= 0)
+        return is_match, lo % w, lo // w, hi % w, hi // w
+    invalid_s, code_s, idx = _two_key_sort(~valid, code)
+    flag_s = idx >= n
+    p = (idx - n * flag_s).to(torch.int32)
+    x_s, y_s = p % w, p // w
+    is_match = _pair_starts(invalid_s, code_s, flag_s)
+    # unstable sort: each pair's (src, tar) order comes from the flag
+    src_left = ~flag_s[:-1]
+    return (is_match,
+            torch.where(src_left, x_s[:-1], x_s[1:]),
+            torch.where(src_left, y_s[:-1], y_s[1:]),
+            torch.where(src_left, x_s[1:], x_s[:-1]),
+            torch.where(src_left, y_s[1:], y_s[:-1]))
+
+
+def match_global(code_src, code_tar, valid_src, valid_tar, disp_high: int,
+                 vertical_tolerance: int, capacity: int, packed: bool = False):
+    """Global (non-epipolar) unique-collision matching of two (H, W) code
+    images into the flat contract, keeping pairs with |d| <= disp_high and
+    |y_src - y_tar| <= vertical_tolerance."""
+    is_match, src_x, src_y, tar_x, tar_y = _global_pairs(
+        code_src, code_tar, valid_src, valid_tar, packed)
+    d = src_x - tar_x
+    keep = (is_match & (d.abs() <= disp_high)
+            & ((src_y - tar_y).abs() <= vertical_tolerance))
+    h, w = code_src.shape
+    return _compact_supports(keep, src_x, src_y, d, capacity, w, h, disp_high)
+
+
+def match_global_rows(key_img, w: int, disp_high: int,
+                      vertical_tolerance: int, num_rows: int = 0,
+                      y_offset: int = 0):
+    """Global unique-collision matching with segmented row-form output.
+
+    ``key_img`` is an (H, 2W) sentinel-packed key image.  One flat sort of
+    all its keys finds the globally unique collisions; the kept supports,
+    packed as ``((y << bx | x) << bd) | (d + disp_high)``, are then sorted
+    within R = ``num_rows`` (default H) segments of the sorted order.
+    Returns ((xs, ys, ds) (R, C) int32, counts (R,)): segment r holds
+    (xs[r, :c], ys[r, :c], ds[r, :c]) with c = counts[r].  ``y_offset`` is
+    the row of ``key_img``'s first row in the full image."""
+    h, w2 = key_img.shape
+    if w2 != 2 * w:
+        raise ValueError(f"key image width {w2} is not 2 * {w}")
+    return _global_rows_core(key_img.reshape(-1), w, w2, h, disp_high,
+                             vertical_tolerance, num_rows, y_offset)
+
+
+def _global_rows_core(key, w, w2, h, disp_high, vertical_tolerance,
+                      num_rows, y_offset):
+    """The segmented global contract over the flat keys of an (h, w2) key
+    image: a sort index decodes as (row, col) via divmod(w2)."""
+    bx, by, bd = _bits(w - 1), _bits(h - 1 + y_offset), _bits(2 * disp_high)
+    if by + bx + bd > 30:
+        raise ValueError(f"global row-form pack needs y+x+d bits <= 30, got "
+                         f"{by}+{bx}+{bd}; use match_global")
+    n = key.shape[0]
+    key_s, idx = torch.sort(key, stable=False)
+    pos_s = idx.to(torch.int32)
+    eq = key_s[:-1] == key_s[1:]
+    pair = eq & ~F.pad(eq[:-1], (1, 0)) & ~F.pad(eq[1:], (0, 1))
+    col_l, row_l = pos_s[:-1] % w2, pos_s[:-1] // w2
+    col_r, row_r = pos_s[1:] % w2, pos_s[1:] // w2
+    # equal sentinels can only meet within one image, which the cross
+    # check rejects like any same-image run
+    l_is_src = col_l < w
+    src_x = torch.where(l_is_src, col_l, col_r)
+    src_y = torch.where(l_is_src, row_l, row_r)
+    tar_c = torch.where(l_is_src, col_r, col_l)
+    tar_y = torch.where(l_is_src, row_r, row_l)
+    d = src_x - (tar_c - w)
+    keep = (pair & (src_x < w) & (tar_c >= w) & (d.abs() <= disp_high)
+            & ((src_y - tar_y).abs() <= vertical_tolerance))
+    src_y = src_y + y_offset
+    r = num_rows if num_rows > 0 else h
+    c = -(-n // r)
+    padn = r * c - (n - 1)
+    pk = torch.where(keep, (((src_y << bx) | src_x) << bd) | (d + disp_high),
+                     _INT32_MAX)
+    pk_s = torch.sort(F.pad(pk, (0, padn), value=_INT32_MAX).reshape(r, c),
+                      dim=1, stable=False).values
+    counts = F.pad(keep, (0, padn)).reshape(r, c).sum(dim=1, dtype=torch.int32)
+    slot_ok = torch.arange(c, device=key.device)[None, :] < counts[:, None]
+    ds = torch.where(slot_ok, (pk_s & ((1 << bd) - 1)) - disp_high, 0)
+    xs = torch.where(slot_ok, (pk_s >> bd) & ((1 << bx) - 1), 0)
+    ys = torch.where(slot_ok, pk_s >> (bd + bx), 0)
+    return (xs, ys, ds), counts

@@ -1,12 +1,17 @@
-"""The fused key kernel: box blur, leaf codes and Sobel candidates in one
-pass, emitting the matcher's sentinel-packed sort keys.
+"""The fused code kernels: box blur, leaf codes and Sobel candidates in one
+pass, emitting either the matcher's sentinel-packed sort keys
+(``fused_keys``) or the codes and candidates as two images
+(``fused_codes``).
 
-``fused_keys`` is the wrapper.  On a CUDA tensor it launches the kernel of
-``csrc/fused_keys.cu`` (built at first use by ``ops._build``) and raises on
-any failure; on a CPU tensor it runs ``fused_keys_plain``, the same math as
-whole-image tensor ops, written after ``opengpc_tpu.ops.fused``'s
-``tile_codes_and_cand`` with the image as one tile.  ``fused_keys.launches``
-counts kernel launches, so a run can show that it went through the kernel.
+Each wrapper launches its kernel (``csrc/fused_keys.cu``,
+``csrc/fused_codes.cu``; built at first use by ``ops._build``) on a CUDA
+tensor and raises on any failure; on a CPU tensor it runs its plain twin
+(``fused_keys_plain``, ``fused_codes_plain``).  Both twins share one body,
+the same math as whole-image tensor ops, written after
+``opengpc_tpu.ops.fused``'s ``tile_codes_and_cand`` with the image as one
+tile; both kernels share ``csrc/tile_codes.cuh``.  ``fused_keys.launches``
+and ``fused_codes.launches`` count kernel launches, so a run can show that
+it went through the kernels.
 """
 
 from __future__ import annotations
@@ -35,13 +40,12 @@ def mask_tests(mask: FilterMask):
     return tuple(map(tuple, _tests_array(mask).tolist()))
 
 
-def fused_keys_plain(img: torch.Tensor, mask: FilterMask,
-                     gradient_threshold: int, pos_base: int,
-                     sentinel_base: int, pack_bits: int = 0) -> torch.Tensor:
-    """Plain-PyTorch twin of the kernel on (..., H, W) uint8 -> int32:
-    ``candidate ? code : sentinel_base + pos_base + x``, or
-    ``(code << pack_bits) | (pos_base + x)`` for candidates when
-    ``pack_bits > 0``."""
+def fused_codes_plain(img: torch.Tensor, mask: FilterMask,
+                      gradient_threshold: int):
+    """Plain-PyTorch twin of the code kernel, and the body of the key
+    kernel's twin: (int32 leaf codes, bool candidates) of a (..., H, W)
+    uint8 image.  At 32 tests a code fills all 32 bits and wraps as JAX's
+    int32 ``code*2+bit`` does."""
     require_u8(img)
     h, w = img.shape[-2:]
     dev = img.device
@@ -74,17 +78,35 @@ def fused_keys_plain(img: torch.Tensor, mask: FilterMask,
     yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
     xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
     interior = (yy >= MARGIN) & (yy < h - MARGIN) & (xx >= MARGIN) & (xx < w - MARGIN)
-    pos = xx + int(pos_base)
+    return code, grad & interior
+
+
+def fused_keys_plain(img: torch.Tensor, mask: FilterMask,
+                     gradient_threshold: int, pos_base: int,
+                     sentinel_base: int, pack_bits: int = 0) -> torch.Tensor:
+    """Plain-PyTorch twin of the key kernel on (..., H, W) uint8 -> int32:
+    ``candidate ? code : sentinel_base + pos_base + x``, or
+    ``(code << pack_bits) | (pos_base + x)`` for candidates when
+    ``pack_bits > 0``."""
+    code, cand = fused_codes_plain(img, mask, gradient_threshold)
+    w = img.shape[-1]
+    pos = torch.arange(w, dtype=torch.int32, device=img.device) + int(pos_base)
     cand_key = (code << int(pack_bits)) | pos if pack_bits else code
-    return torch.where(grad & interior, cand_key, pos + int(sentinel_base))
+    return torch.where(cand, cand_key, pos + int(sentinel_base))
 
 
-def _check_args(mask: FilterMask, pack_bits: int) -> None:
+def check_mask(mask: FilterMask) -> None:
+    """Reject what no code kernel takes: a test count outside 1..32 or an
+    offset beyond the 13-px halo."""
     if not 1 <= mask.num_tests <= MAX_TESTS:
-        raise ValueError(f"the key kernel takes 1..{MAX_TESTS} tests, got "
+        raise ValueError(f"the code kernels take 1..{MAX_TESTS} tests, got "
                          f"{mask.num_tests}")
     if max(np.abs(mask.i_off).max(), np.abs(mask.j_off).max()) > PATCH_HALF:
         raise ValueError(f"test offsets beyond +-{PATCH_HALF} px")
+
+
+def _check_args(mask: FilterMask, pack_bits: int) -> None:
+    check_mask(mask)
     if not 0 <= pack_bits <= 30:
         raise ValueError(f"pack_bits must be in 0..30, got {pack_bits}")
 
@@ -95,7 +117,7 @@ def _launch(img: torch.Tensor, out: torch.Tensor, col_offset: int,
     """Launch the CUDA kernel: keys of the (B, H, W) batch ``img`` into
     columns [col_offset, col_offset + W) of the (B, H, Wout) int32 ``out``,
     on the current stream, without synchronizing."""
-    from opengpc_tpu_torch.ops._build import cuda_error_string, load_library
+    from opengpc_tpu_torch.ops._build import check_launch, load_library
 
     if not img.is_cuda:
         raise ValueError(f"fused_keys: no kernel for {img.device} tensors")
@@ -117,9 +139,7 @@ def _launch(img: torch.Tensor, out: torch.Tensor, col_offset: int,
             out.shape[1] * out.shape[2], col_offset, tests.ctypes.data,
             tests.shape[0], int(gradient_threshold) ** 2, int(pos_base),
             int(sentinel_base), int(pack_bits), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_keys kernel launch failed: CUDA error {rc} "
-                           f"({cuda_error_string(rc)})")
+    check_launch("fused_keys", rc)
     fused_keys.launches += 1
 
 
@@ -168,3 +188,46 @@ def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,
 
 
 fused_keys.launches = 0
+
+
+def _launch_codes(img: torch.Tensor, codes: torch.Tensor, cand: torch.Tensor,
+                  mask: FilterMask, gradient_threshold: int) -> None:
+    """Launch the code kernel on the contiguous (B, H, W) CUDA batch
+    ``img`` into ``codes`` (int32) and ``cand`` (bool), on the current
+    stream, without synchronizing."""
+    from opengpc_tpu_torch.ops._build import check_launch, load_library
+
+    tests = _tests_array(mask)
+    lib = load_library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ogpc_fused_codes(
+            img.data_ptr(), codes.data_ptr(), cand.data_ptr(), *img.shape,
+            tests.ctypes.data, tests.shape[0],
+            int(gradient_threshold) ** 2, stream)
+    check_launch("fused_codes", rc)
+    fused_codes.launches += 1
+
+
+def fused_codes(img: torch.Tensor, mask: FilterMask,
+                gradient_threshold: int):
+    """(codes int32, candidates bool) of an (H, W) or (B, H, W) uint8
+    image in one fused pass: the kernel of ``csrc/fused_codes.cu`` for a
+    CUDA tensor, ``fused_codes_plain`` for a CPU one."""
+    require_u8(img)
+    check_mask(mask)
+    if img.dim() not in (2, 3):
+        raise ValueError(f"expected an (H, W) image or a (B, H, W) batch, "
+                         f"got {tuple(img.shape)}")
+    if img.device.type == "cpu":
+        return fused_codes_plain(img, mask, gradient_threshold)
+    if not img.is_cuda:
+        raise ValueError(f"fused_codes: no kernel for {img.device} tensors")
+    batch = img.contiguous().reshape((-1,) + tuple(img.shape[-2:]))
+    codes = torch.empty(batch.shape, dtype=torch.int32, device=img.device)
+    cand = torch.empty(batch.shape, dtype=torch.bool, device=img.device)
+    _launch_codes(batch, codes, cand, mask, gradient_threshold)
+    return codes.reshape(img.shape), cand.reshape(img.shape)
+
+
+fused_codes.launches = 0

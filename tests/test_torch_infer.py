@@ -16,6 +16,7 @@ from opengpc_tpu.io.raw import write_raw
 
 import opengpc_tpu_torch as pt
 import opengpc_tpu_torch.infer as tinfer
+from opengpc_tpu_torch.forest import Forest
 from opengpc_tpu_torch.match import MASKED_SENTINEL
 from opengpc_tpu_torch.utils import make_pair, make_scene, make_sparse_pair
 
@@ -182,27 +183,42 @@ def test_one_call_guards():
         pt.sparsematch([], [], ZERO, ts, device="cpu")
 
 
-@pytest.mark.parametrize("case", ["global", "pyramid", "tests31", "wide_pack",
-                                  "png"])
+@pytest.mark.parametrize("case", ["pyramid", "png"])
 def test_one_call_refuses_other_routes(case):
     _, ts = settings_pair()
     left, right = make_pair(40, 80, 3)
-    forest = ZERO
     kw = {}
-    if case == "global":
-        ts = pt.InferenceSettings(gradient_threshold=5, epipolar_mode=False)
-    elif case == "pyramid":
+    if case == "pyramid":
         kw["levels"] = 2
-    elif case == "tests31":
-        forest = pt.filter_mask_from_numpy([[0, 1]] * 31, [[1, 0]] * 31,
-                                           [0] * 31, 0)
-    elif case == "wide_pack":
-        ts = pt.InferenceSettings(gradient_threshold=5, epipolar_mode=True,
-                                  disp_high=1 << 26)
     else:
         left = "left.png"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.sparsematch(left, right, forest, ts, device="cpu", **kw)
+        pt.sparsematch(left, right, ZERO, ts, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["global", "tests31", "wide_pack"])
+def test_one_call_former_refusals_match_jax(case):
+    """Global mode, a 31-test forest and an (x, d) pack wider than 30 bits
+    take the global-rows and flat routes, equal to JAX's one-call."""
+    js, ts = settings_pair()
+    left, right = make_pair(40, 80, 3)
+    jm, tm = masks("tau")
+    if case == "global":
+        kw = dict(gradient_threshold=5, epipolar_mode=False)
+        js, ts = jt.InferenceSettings(**kw), pt.InferenceSettings(**kw)
+    elif case == "tests31":
+        jm = jt.make_filter_mask(jt.Forest(
+            jt.load_forest(TAU).ferns + jt.load_forest(ZERO).ferns), 31)
+        tm = pt.make_filter_mask(Forest(
+            pt.load_forest(TAU).ferns + pt.load_forest(ZERO).ferns), 31)
+        assert tm.num_tests == 31
+    else:
+        kw = dict(gradient_threshold=5, epipolar_mode=True, disp_high=1 << 26)
+        js, ts = jt.InferenceSettings(**kw), pt.InferenceSettings(**kw)
+    got = pt.sparsematch(left, right, tm, ts, device="cpu")
+    want = jt.sparsematch(left, right, jm, js)
+    assert len(got) > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_forest_cache_keys_on_inode_and_content(tmp_path):

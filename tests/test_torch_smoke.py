@@ -25,7 +25,9 @@ def _clean_env():
 
 def test_port_imports_no_jax():
     code = ("import sys, opengpc_tpu_torch, opengpc_tpu_torch.infer, "
-            "opengpc_tpu_torch.ops.fused, opengpc_tpu_torch.ops._build\n"
+            "opengpc_tpu_torch.match, opengpc_tpu_torch.ops.fused, "
+            "opengpc_tpu_torch.ops.sort, opengpc_tpu_torch.ops.fused_match, "
+            "opengpc_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'opengpc_tpu.')) or m == 'opengpc_tpu')\n"
             "assert not bad, bad\n"
@@ -46,6 +48,27 @@ def test_cpu_tensor_runs_twin_and_counts_no_launch():
     got = fused_keys(img, mask, 5, 0, SENTINEL_BASE)
     assert fused_keys.launches == before == 0
     assert torch.equal(got, fused_keys_plain(img, mask, 5, 0, SENTINEL_BASE))
+
+
+def test_library_name_follows_every_csrc_file(tmp_path):
+    """An edited header changes the library's name, so a stale build is
+    never loaded; the hash covers every .cu, .cuh and .h file."""
+    from opengpc_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    files = _build.csrc_files(str(csrc))
+    names = {os.path.basename(f) for f in files}
+    assert {"fused_keys.cu", "tile_codes.cuh", "bitonic.cuh"} <= names
+    first = _build._library_path(files)
+    assert _build._library_path(_build.csrc_files(str(csrc))) == first
+    header = csrc / "tile_codes.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    second = _build._library_path(_build.csrc_files(str(csrc)))
+    assert second != first
+    (csrc / "extra.h").write_text("#pragma once\n")
+    assert _build._library_path(_build.csrc_files(str(csrc))) not in (first,
+                                                                      second)
 
 
 def _run_smoke(cwd):
