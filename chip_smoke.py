@@ -3,18 +3,22 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout and holds each of them (fused
-keys, fused codes, bitonic row sort, fused match) against its
-plain-PyTorch twin bit for bit.  Then it drives every level-1 route of the
-one-call ``sparsematch`` at 436x1024: the masked epipolar route, the
-global-rows route at the library's default settings, and four cases of the
-flat route; and the selectable variants (fused match, bitonic sort) and
-``extract_descriptors``.  Each path runs with every launch counter at 0
-and is read right after, so the run shows which kernels it went through.
-Supports are checked against the native oracle (``cpp/build/oracle``),
-the CPU pipeline and, where the mode allows, the true disparity.  Last it
-times the kernels against their twins and the routes per pair with CUDA
-events and ``torch.profiler``.  Every phase prints one JSON line; the last
-line is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+keys, slab keys, fused codes, census, bitonic row sort, fused match)
+against its plain-PyTorch twin bit for bit, and the census also against
+the native oracle.  Then it drives every level-1 route of the one-call
+``sparsematch`` at 436x1024: the masked epipolar route, the global-rows
+route at the library's default settings, and four cases of the flat route;
+the selectable variants (fused match, bitonic sort) and
+``extract_descriptors``; the row-sharded single frame (every contract, n =
+1 over a one-rank NCCL process group and n = 2, 4 in one process) and one
+census call.  Each path runs with every launch counter at 0 and is read
+right after, so the run shows which kernels it went through.  Supports are
+checked against the native oracle (``cpp/build/oracle``), the CPU pipeline
+or the single-device module and, where the mode allows, the true
+disparity.  Last it times the kernels against their twins, the routes per
+pair and the sharded module against the single-device one with CUDA events
+and ``torch.profiler``.  Every phase prints one JSON line; the last line
+is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits non-zero before doing
 anything.
 """
@@ -53,7 +57,16 @@ KERNELS = {  # name -> (wrapper module, source, the TPU kernel it replaces)
     "fused_sparsematch_rows": ("opengpc_tpu_torch.ops.fused_match",
                                "opengpc_tpu_torch/csrc/fused_match.cu",
                                "opengpc_tpu/ops/fused_match.py:52"),
+    "fused_keys_slab": ("opengpc_tpu_torch.ops.fused",
+                        "opengpc_tpu_torch/csrc/fused_keys_slab.cu",
+                        "opengpc_tpu/ops/fused.py:432"),
+    "fused_census": ("opengpc_tpu_torch.ops.fused",
+                     "opengpc_tpu_torch/csrc/fused_census.cu",
+                     "opengpc_tpu/ops/fused.py:330"),
 }
+SLAB_SHAPES = ((436, 1024), (2160, 3840))
+CENSUS_SHAPES = ((5, 6), (37, 130), (129, 1023), (436, 1024), (1081, 1919),
+                 (2160, 3840))
 
 
 def emit(phase, **fields):
@@ -189,7 +202,7 @@ def phase_build():
     t0 = time.perf_counter()
     _build.load_library()
     ptxas = [ln.strip() for ln in _build.build_info.get("log", "").splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit("build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_info.get("seconds"), ptxas=ptxas)
 
@@ -831,6 +844,279 @@ def phase_new_times(smi, masks):
     return {name: (t["ms"], t["plain_ms"]) for name, t in times.items()}
 
 
+def phase_slab_vs_twin(masks):
+    """fused_keys_slab vs its twin on the card, bit for bit: every shard of
+    n = 2, 4, 8 (where H divides) at 436x1024 and 2160x3840, with every
+    kernel mask; the joined shards equal whole-frame fused_keys."""
+    import torch.nn.functional as F
+
+    from opengpc_tpu_torch.match import SENTINEL_BASE
+    from opengpc_tpu_torch.ops.fused import (PAD, fused_keys, fused_keys_slab,
+                                             fused_keys_slab_plain)
+
+    rng = np.random.default_rng(10)
+    worst, cases, failures = 0, 0, []
+    for h, w in SLAB_SHAPES:
+        img = torch.from_numpy(structured_image(rng, h, w)).cuda()
+        padded = F.pad(img, (0, 0, PAD, PAD))
+        for name, mask in masks.items():
+            whole = fused_keys(img, mask, 5, w, SENTINEL_BASE)
+            for n in (2, 4, 8):
+                if h % n:
+                    continue
+                sh, blocks = h // n, []
+                for i in range(n):
+                    slab = padded[i * sh:(i + 1) * sh + 2 * PAD]
+                    got = fused_keys_slab(slab, mask, 5, w, SENTINEL_BASE,
+                                          i * sh, h)
+                    want = fused_keys_slab_plain(slab, mask, 5, w,
+                                                 SENTINEL_BASE, i * sh, h)
+                    err = max_err(got, want)
+                    worst, cases = max(worst, err), cases + 1
+                    if err or not (want < SENTINEL_BASE).any():
+                        failures.append((h, w, name, n, i, err))
+                    blocks.append(got)
+                err = max_err(torch.cat(blocks), whole)
+                worst, cases = max(worst, err), cases + 1
+                if err:
+                    failures.append((h, w, name, n, "joined", err))
+    torch.cuda.synchronize()
+    return finish_vs_twin("fused_keys_slab", cases, worst, failures)
+
+
+def oracle_census(oracle, img):
+    """The native oracle's 5x5 census of a uint8 image, as int64."""
+    from opengpc_tpu_torch.io import read_raw, write_raw
+
+    with tempfile.TemporaryDirectory() as td:
+        inp, out = os.path.join(td, "in.raw"), os.path.join(td, "out.raw")
+        write_raw(inp, img)
+        subprocess.run([oracle, "census", inp, out], check=True)
+        return read_raw(out).astype(np.int64)
+
+
+def phase_census_vs_twin(oracle):
+    """fused_census vs its twin (``ops.census.census5x5``) on the card, bit
+    for bit, on odd shapes up to 2160x3840, and equal to the oracle's
+    census at 436x1024."""
+    from opengpc_tpu_torch.ops.census import census5x5
+    from opengpc_tpu_torch.ops.fused import fused_census
+
+    rng = np.random.default_rng(11)
+    worst, cases, failures = 0, 0, []
+    for h, w in CENSUS_SHAPES:
+        host = structured_image(rng, h, w)
+        img = torch.from_numpy(host).cuda()
+        got, want = fused_census(img), census5x5(img)
+        err = max_err(got, want)
+        worst, cases = max(worst, err), cases + 1
+        if err or (h > 5 and not want.any()):
+            failures.append((h, w, err))
+        if (h, w) == (H, W):
+            diff = np.abs(got.cpu().numpy() - oracle_census(oracle, host))
+            worst, cases = max(worst, int(diff.max())), cases + 1
+            if diff.any():
+                failures.append((h, w, "oracle", int(diff.max())))
+    torch.cuda.synchronize()
+    return finish_vs_twin("fused_census", cases, worst, failures)
+
+
+def _leaves(out):
+    if isinstance(out, tuple):
+        return [leaf for o in out for leaf in _leaves(o)]
+    return [out]
+
+
+def _decode(contract, out, settings):
+    from opengpc_tpu_torch import (global_row_supports_to_numpy,
+                                   masked_supports_to_numpy,
+                                   row_supports_to_numpy)
+
+    if contract == "global-compact":
+        return global_row_supports_to_numpy(*out[0], out[1])
+    if contract == "rows":
+        return row_supports_to_numpy(*out[0], out[1])
+    return masked_supports_to_numpy(out[0], out[1], settings.disp_high)
+
+
+def sharded_cases():
+    """(contract, settings, scene, expected overflow flag): masked and rows
+    on both scenes, masked-compact clear on the sparse and set on the dense
+    scene, global-compact at the library defaults on the sparse scene."""
+    from opengpc_tpu_torch import InferenceSettings
+
+    epi = InferenceSettings(**SETTINGS_KW)
+    cases = [(c, epi, s, None) for c in ("masked", "rows")
+             for s in ("dense", "sparse")]
+    return cases + [("masked-compact", epi, "sparse", False),
+                    ("masked-compact", epi, "dense", True),
+                    ("global-compact", InferenceSettings(), "sparse", False)]
+
+
+def phase_sharded_frame(oracle, paths, launches):
+    """The row-sharded single frame at 436x1024 with both shipped forests:
+    n = 1 over a real one-rank NCCL process group, n = 2 and 4 through the
+    one-process helper, every contract; and masked at 2160x3840 with n = 4.
+    Each path runs with the launch counters at 0 and must launch
+    fused_keys_slab; each result equals the single-device module of its
+    contract on the card (bit for bit; the global contract as a support
+    set, its segments following the bucket order) and passes the oracle
+    gate, unless its overflow flag is set, as it must be on the dense
+    scene."""
+    import torch.distributed as dist
+
+    from opengpc_tpu_torch import (build_sparsematch_global_compact,
+                                   build_sparsematch_masked,
+                                   build_sparsematch_masked_compact,
+                                   build_sparsematch_rows, load_forest,
+                                   make_filter_mask)
+    from opengpc_tpu_torch.parallel import (_run_in_one_process,
+                                            build_sharded_frame_sparsematch)
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    single_builders = {"masked": build_sparsematch_masked,
+                       "rows": build_sparsematch_rows,
+                       "masked-compact": build_sparsematch_masked_compact,
+                       "global-compact": build_sparsematch_global_compact}
+    scenes = {"dense": make_pair(H, W, TRUE_DISP),
+              "sparse": make_sparse_pair(H, W, TRUE_DISP, density=0.15)}
+    big = {"dense-2160x3840": make_pair(2160, 3840, TRUE_DISP, seed=5)}
+    failures, report, all_counts = [], {}, {}
+
+    def check(key, contract, settings, forest, pair, out, counts, want_flag):
+        left, right = pair
+        single = single_builders[contract](
+            make_filter_mask(load_forest(paths[forest])), settings,
+            device="cuda")(*(torch.from_numpy(a).cuda() for a in pair))
+        all_counts[key] = counts
+        rep = {}
+        if not counts["fused_keys_slab"]:
+            failures.append(f"{key}: no fused_keys_slab launch")
+        if want_flag is not None:
+            rep["overflow"] = bool(out[-1])
+            if bool(out[-1]) != want_flag or bool(single[-1]) != want_flag:
+                failures.append(f"{key}: overflow {bool(out[-1])}, single "
+                                f"{bool(single[-1])}, want {want_flag}")
+            if want_flag:
+                report[key] = rep
+                return
+        sup = _decode(contract, out, settings)
+        if contract == "global-compact":
+            same = (set(map(tuple, sup.tolist()))
+                    == set(map(tuple, _decode(contract, single,
+                                              settings).tolist())))
+        else:
+            same = all(torch.equal(a, b) for a, b in
+                       zip(_leaves(out), _leaves(single), strict=True))
+        ok, gate = oracle_gate(oracle, left, right, paths[forest], sup,
+                               settings)
+        report[key] = dict(rep, **gate, equals_single_device=same)
+        if not (same and ok and len(sup)):
+            failures.append(f"{key}: {report[key]}")
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(td, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            for n in (1, 2, 4):
+                group = dist.group.WORLD if n == 1 else None
+                for forest in FORESTS:
+                    mask = make_filter_mask(load_forest(paths[forest]))
+                    for contract, settings, scene, flag in sharded_cases():
+                        mod = build_sharded_frame_sparsematch(
+                            mask, settings, group=group, contract=contract,
+                            device="cuda")
+                        l_d, r_d = (torch.from_numpy(a).cuda()
+                                    for a in scenes[scene])
+                        out, counts = launches.run(
+                            lambda: mod(l_d, r_d) if n == 1
+                            else _run_in_one_process(mod, l_d, r_d, n))
+                        check(f"n{n}/{forest}/{contract}/{scene}", contract,
+                              settings, forest, scenes[scene], out, counts,
+                              flag)
+        finally:
+            dist.destroy_process_group()
+    from opengpc_tpu_torch import InferenceSettings
+
+    settings = InferenceSettings(**SETTINGS_KW)
+    mask = make_filter_mask(load_forest(paths["defaultZeroForest"]))
+    mod = build_sharded_frame_sparsematch(mask, settings, device="cuda")
+    for scene, pair in big.items():
+        l_d, r_d = (torch.from_numpy(a).cuda() for a in pair)
+        out, counts = launches.run(
+            lambda: _run_in_one_process(mod, l_d, r_d, 4))
+        check(f"n4/defaultZeroForest/masked/{scene}", "masked", settings,
+              "defaultZeroForest", pair, out, counts, None)
+    emit("sharded_frame", cases=len(report), launches=all_counts,
+         checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"sharded frame failed: {failures}")
+
+
+def phase_census(launches):
+    """One census API call through fused_census on the card, with its
+    launch counter read."""
+    from opengpc_tpu_torch.ops.census import census5x5
+    from opengpc_tpu_torch.ops.fused import fused_census
+
+    img = torch.from_numpy(structured_image(np.random.default_rng(12), H,
+                                            W)).cuda()
+    out, counts = launches.run(lambda: fused_census(img))
+    same = bool(torch.equal(out, census5x5(img)))
+    emit("census", launches=counts, equals_twin=same, shape=[H, W])
+    if counts["fused_census"] != 1 or not same:
+        raise SystemExit(f"census call failed: {counts}, equal {same}")
+
+
+def phase_slab_times(smi, masks):
+    """fused_keys_slab (both images of one n = 1 slab pair, the whole
+    436x1024 frame) and fused_census (one 436x1024 image) against their
+    twins, and the n = 1 sharded masked module against the single-device
+    masked module per pair at 436x1024."""
+    import torch.nn.functional as F
+
+    from opengpc_tpu_torch import InferenceSettings, build_sparsematch_masked
+    from opengpc_tpu_torch.infer import _key_image_slab
+    from opengpc_tpu_torch.match import SENTINEL_BASE
+    from opengpc_tpu_torch.ops.census import census5x5
+    from opengpc_tpu_torch.ops.fused import (PAD, fused_census,
+                                             fused_keys_slab_plain)
+    from opengpc_tpu_torch.parallel import build_sharded_frame_sparsematch
+    from opengpc_tpu_torch.utils import make_pair
+
+    settings = InferenceSettings(**SETTINGS_KW)
+    zero = masks["zero"]
+    left, right = (torch.from_numpy(a).cuda()
+                   for a in make_pair(H, W, TRUE_DISP))
+    sl, sr = (F.pad(t, (0, 0, PAD, PAD)) for t in (left, right))
+    times = {}
+    times["fused_keys_slab"] = kernel_vs_plain_times(
+        lambda: _key_image_slab(sl, sr, zero, settings, 0, H),
+        lambda: torch.cat([
+            fused_keys_slab_plain(sl, zero, 5, 0, SENTINEL_BASE, 0, H),
+            fused_keys_slab_plain(sr, zero, 5, W, SENTINEL_BASE, 0, H)],
+            dim=1), 200, 20)
+    times["fused_census"] = kernel_vs_plain_times(
+        lambda: fused_census(left), lambda: census5x5(left), 200, 20)
+    emit("slab_census_times", card=smi, shape=[H, W], **times)
+    sharded = build_sharded_frame_sparsematch(zero, settings, device="cuda")
+    single = build_sparsematch_masked(zero, settings, device="cuda")
+    mods = {"single_device_masked": single, "sharded_n1_masked": sharded}
+    module_times = {name: dict(
+        events_ms=[cuda_ms(lambda: m(left, right), 200) for _ in range(2)],
+        profile=device_profile(lambda: m(left, right), 50))
+        for name, m in mods.items()}
+    # in turns on one card: single, sharded, sharded, single
+    module_times["turns_ms"] = [
+        cuda_ms(lambda: mods[k](left, right), 200)
+        for k in ("single_device_masked", "sharded_n1_masked",
+                  "sharded_n1_masked", "single_device_masked")]
+    emit("sharded_times", card=smi, shape=[H, W], **module_times)
+    return {name: (t["ms"], t["plain_ms"]) for name, t in times.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -846,15 +1132,20 @@ def main():
         errs = {"fused_keys": phase_kernel_vs_twin(),
                 "fused_codes": phase_codes_vs_twin(masks),
                 "bitonic_sort_rows": phase_sort_vs_twin(masks),
-                "fused_sparsematch_rows": phase_fused_match_vs_twin(masks)}
+                "fused_sparsematch_rows": phase_fused_match_vs_twin(masks),
+                "fused_keys_slab": phase_slab_vs_twin(masks)}
         oracle = build_oracle()
+        errs["fused_census"] = phase_census_vs_twin(oracle)
         launches = Launches()
         phase_main_path(oracle, launches)
         phase_routes(oracle, paths, launches)
         phase_variants(oracle, paths, masks, launches)
         phase_descriptors(paths, masks, launches)
+        phase_sharded_frame(oracle, paths, launches)
+        phase_census(launches)
         times = {"fused_keys": phase_times(smi)}
         times.update(phase_new_times(smi, masks))
+        times.update(phase_slab_times(smi, masks))
     missing = [k for k, n in launches.total.items() if n == 0]
     if missing:
         raise SystemExit(f"no path launched {missing}")

@@ -5,9 +5,12 @@ The one-call ``sparsematch`` runs every level-1 route of the JAX package:
 the masked epipolar contract, the global-rows contract (the library
 defaults: global mode, gradient threshold 10) and the flat contract (any
 forest of <= 32 tests, either mode), with the hand-written CUDA kernels of
-``csrc/`` (fused keys, fused codes, bitonic row sort, fused match).  It
-imports torch and numpy and never JAX; importing it builds and loads no
-kernel.
+``csrc/`` (fused keys, fused codes, bitonic row sort, fused match).  The
+row-form and chunk-compacted contracts have their builders, and
+``opengpc_tpu_torch.parallel`` shards one frame's rows over a
+``torch.distributed`` group (slab key kernel).  ``ops.fused.fused_census``
+is the census kernel.  The package imports torch and numpy and never JAX;
+importing it builds and loads no kernel.
 
 >>> from opengpc_tpu_torch import InferenceSettings, sparsematch
 >>> supports = sparsematch(left, right, "forests/defaultZeroForest.txt")
@@ -20,24 +23,32 @@ from opengpc_tpu_torch.config import InferenceSettings
 from opengpc_tpu_torch.forest import (filter_mask_from_numpy, load_forest,
                                       make_filter_mask)
 from opengpc_tpu_torch.infer import (build_sparsematch,
+                                     build_sparsematch_global_compact,
                                      build_sparsematch_global_rows,
                                      build_sparsematch_masked,
+                                     build_sparsematch_masked_compact,
+                                     build_sparsematch_rows,
                                      extract_descriptors,
                                      global_row_supports_to_numpy,
-                                     masked_supports_to_numpy, sparsematch,
+                                     masked_supports_to_numpy,
+                                     row_supports_to_numpy, sparsematch,
                                      supports_to_numpy)
 
 __all__ = [
     "InferenceSettings",
     "build_sparsematch",
+    "build_sparsematch_global_compact",
     "build_sparsematch_global_rows",
     "build_sparsematch_masked",
+    "build_sparsematch_masked_compact",
+    "build_sparsematch_rows",
     "extract_descriptors",
     "filter_mask_from_numpy",
     "global_row_supports_to_numpy",
     "load_forest",
     "make_filter_mask",
     "masked_supports_to_numpy",
+    "row_supports_to_numpy",
     "sparsematch",
     "supports_to_numpy",
 ]

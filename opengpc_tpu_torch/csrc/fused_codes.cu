@@ -48,7 +48,7 @@ fused_codes_kernel(const uint8_t* __restrict__ img,
   const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTileW;
   const int tid = threadIdx.y * kTileW + threadIdx.x;
-  tile.stage(img + base, h, w, y0, x0, tid, kTileW * kThreadsY);
+  tile.stage(img + base, 0, h, h, w, y0, x0, tid, kTileW * kThreadsY);
 
   const int tx = threadIdx.x;
   const int x = x0 + tx;

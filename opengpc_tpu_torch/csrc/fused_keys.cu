@@ -59,7 +59,7 @@ fused_keys_kernel(const uint8_t* __restrict__ img, int32_t* __restrict__ out,
   const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTileW;
   const int tid = threadIdx.y * kTileW + threadIdx.x;
-  tile.stage(img + static_cast<size_t>(b) * h * w, h, w, y0, x0, tid,
+  tile.stage(img + static_cast<size_t>(b) * h * w, 0, h, h, w, y0, x0, tid,
              kTileW * kThreadsY);
 
   const int tx = threadIdx.x;

@@ -78,7 +78,7 @@ fused_match_kernel(const uint8_t* __restrict__ left,
   for (int side = 0; side < 2; ++side) {
     const uint8_t* src = side ? right : left;
     for (int x0 = 0; x0 < w; x0 += kTileW) {
-      tile.stage(src, h, w, y0, x0, tid, kThreads);
+      tile.stage(src, 0, h, h, w, y0, x0, tid, kThreads);
       for (int p = tid; p < kRows * kTileW; p += kThreads) {
         const int ty = p / kTileW, tx = p % kTileW;
         const int x = x0 + tx;

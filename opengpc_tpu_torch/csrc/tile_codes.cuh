@@ -3,9 +3,11 @@
 // of that module and ops/fused_match.py calls.
 //
 // A CodeTile<kTileH, kTileW> lives in shared memory.  stage() copies the
-// tile's (kTileH+28) x (kTileW+28) uint8 window (zeros outside the image)
-// and box-blurs its (kTileH+26) x (kTileW+26) code-support region, zeroing
-// by global coordinates:
+// tile's (kTileH+28) x (kTileW+28) uint8 window from a source buffer that
+// holds image rows [src_row0, src_row0 + src_rows) (the whole image, or a
+// row slab with its halo; zeros outside the buffer and the columns) and
+// box-blurs its (kTileH+26) x (kTileW+26) code-support region, zeroing by
+// image coordinates of the h-row image:
 //   smooth = floor(box3x3 / 9), zero outside 1 <= y <= h-3, 2 <= x <= w-2.
 // Then, for the pixel at tile (ty, tx) = image (y, x):
 //   code() = T <= 32 tests smooth[p+i] > smooth[p+j] - tau, MSB-first,
@@ -67,17 +69,20 @@ struct CodeTile {
   uint8_t raw[kRawH][kRawW];     // image (y0-14 .., x0-14 ..)
   uint8_t smooth[kBoxH][kBoxW];  // image (y0-13 .., x0-13 ..)
 
-  // Stage the tile whose first output pixel is image (y0, x0) of the h x w
-  // image src, with nthreads threads; ends with a barrier.  The caller
-  // puts a barrier between the last read of one tile and the next stage().
+  // Stage the tile whose first output pixel is image (y0, x0) of an h x w
+  // image, with nthreads threads; ends with a barrier.  src holds the
+  // image rows [src_row0, src_row0 + src_rows), w bytes each: the whole
+  // image (src_row0 = 0, src_rows = h) or a slab.  The caller puts a
+  // barrier between the last read of one tile and the next stage().
   __device__ __forceinline__ void stage(const uint8_t* __restrict__ src,
-                                        int h, int w, int y0, int x0,
-                                        int tid, int nthreads) {
+                                        int src_row0, int src_rows, int h,
+                                        int w, int y0, int x0, int tid,
+                                        int nthreads) {
     for (int i = tid; i < kRawH * kRawW; i += nthreads) {
       const int r = i / kRawW, c = i % kRawW;
-      const int gy = y0 + r - kPad, gx = x0 + c - kPad;
-      raw[r][c] = (gy >= 0 && gy < h && gx >= 0 && gx < w)
-                      ? src[static_cast<size_t>(gy) * w + gx] : 0;
+      const int sy = y0 + r - kPad - src_row0, gx = x0 + c - kPad;
+      raw[r][c] = (sy >= 0 && sy < src_rows && gx >= 0 && gx < w)
+                      ? src[static_cast<size_t>(sy) * w + gx] : 0;
     }
     __syncthreads();
     for (int i = tid; i < kBoxH * kBoxW; i += nthreads) {

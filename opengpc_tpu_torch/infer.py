@@ -21,6 +21,15 @@ settings, as in ``opengpc_tpu.infer``:
 batch folds into one row sort on the masked route and runs pair by pair
 (the JAX package's ``lax.map``) on the others.  The pyramid (``levels >
 1``) and PNG inputs are not ported yet and raise ``NotImplementedError``.
+
+Beside the routes, the builders of the other contracts: the row form
+(``build_sparsematch_rows``, per-row left-packed (xs, ds)), and the
+chunk-compacted low-density masked and global contracts
+(``build_sparsematch_masked_compact``,
+``build_sparsematch_global_compact``), whose ``overflow`` flag tells the
+caller to re-run the full-width contract.  ``_key_image_slab`` is the key
+image of one row slab of a larger frame, the sharded frame's
+(``opengpc_tpu_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -39,8 +48,14 @@ from opengpc_tpu_torch.forest import FilterMask, Forest, load_forest, make_filte
 from opengpc_tpu_torch.match import (MASKED_SENTINEL, SENTINEL_BASE, _bits,
                                      _match_epipolar_packed, _rows_of, compact,
                                      match_epipolar, match_epipolar_masked,
-                                     match_global, match_global_rows)
-from opengpc_tpu_torch.ops.fused import fused_codes, fused_keys_into, mask_tests
+                                     match_epipolar_masked_compact,
+                                     match_epipolar_rows, match_global,
+                                     match_global_rows,
+                                     match_global_rows_compact,
+                                     resolve_masked_compact_chunks)
+from opengpc_tpu_torch.ops.fused import (_slab_rows, fused_codes,
+                                         fused_keys_into, fused_keys_slab_into,
+                                         mask_tests)
 from opengpc_tpu_torch.ops.fused_match import fused_sparsematch_rows
 from opengpc_tpu_torch.ops.preprocess import CANDIDATE_MARGIN, require_u8
 
@@ -117,6 +132,46 @@ def _key_image(left, right, mask: FilterMask, settings: InferenceSettings):
     return _batched_key_images(left[None], right[None], mask, settings)[0]
 
 
+def _key_image_slab(slab_l, slab_r, mask: FilterMask,
+                    settings: InferenceSettings, y0: int, h_total: int):
+    """(sh, 2W) sentinel-packed key image of one row slab of a larger
+    frame: ``slab_*`` are (sh + 28, W) uint8 slabs holding frame rows
+    [y0 - 14, y0 + sh + 14) (zeros outside the frame), ``h_total`` the
+    frame's height.  Equal to rows [y0, y0 + sh) of :func:`_key_image` on
+    the whole frame.  The slab key kernel on CUDA tensors, its plain twin
+    on CPU tensors."""
+    if slab_l.shape != slab_r.shape:
+        raise ValueError(f"slab shapes differ: {tuple(slab_l.shape)} vs "
+                         f"{tuple(slab_r.shape)}")
+    sh, w = _slab_rows(slab_l, y0, h_total), slab_l.shape[1]
+    out = torch.empty((sh, 2 * w), dtype=torch.int32, device=slab_l.device)
+    thr = settings.gradient_threshold
+    fused_keys_slab_into(slab_l, out, 0, mask, thr, 0, SENTINEL_BASE, y0,
+                         h_total)
+    fused_keys_slab_into(slab_r, out, w, mask, thr, w, SENTINEL_BASE, y0,
+                         h_total)
+    return out
+
+
+def _folded_key_rows(left, right, mask: FilterMask,
+                     settings: InferenceSettings):
+    """The interior rows of the key image of one (H, W) pair, or of a
+    (B, H, W) batch's key images folded into one row axis: (rows (R, 2W),
+    the (..., H') shape they unfold to, the margin m).  Epipolar rows are
+    independent, so a folded batch matches as its pairs do one by one."""
+    keys = (_batched_key_images(left, right, mask, settings)
+            if left.dim() == 3 else _key_image(left, right, mask, settings))
+    keys, m = _interior_rows(keys)
+    return keys.reshape(-1, keys.shape[-1]), keys.shape[:-1], m
+
+
+def _unfold(t, lead, m, value=0):
+    """Per-row results (R, ...) back to (..., H, ...): the (..., H') shape
+    ``lead`` and ``m`` margin rows of ``value`` on both sides."""
+    t = t.reshape(lead + t.shape[1:])
+    return _pad_rows(t, m, len(lead) - 1 - t.dim(), value=value)
+
+
 def _codes_and_candidates(img, mask: FilterMask,
                           settings: InferenceSettings):
     """(codes int32, candidates bool) of an (H, W) image: the fused code
@@ -124,26 +179,22 @@ def _codes_and_candidates(img, mask: FilterMask,
     return fused_codes(img, mask, settings.gradient_threshold)
 
 
-def _sparsematch_masked_impl(left, right, mask: FilterMask,
-                             settings: InferenceSettings):
-    """(buf (H, 2W) int32, row_counts (H,) int32) for one pair, or
-    (B, H, 2W) and (B, H) for a batch folded into one row sort."""
-    shape = tuple(left.shape[-2:])
+def _check_masked(mask: FilterMask, shape, settings: InferenceSettings):
     if not _rows_ok(mask, shape, settings):
         raise ValueError(
             "masked output needs epipolar mode, <=30-test forests and a "
             "30-bit (x, d) pack")
-    batched = left.dim() == 3
-    keys = (_batched_key_images(left, right, mask, settings) if batched
-            else _key_image(left, right, mask, settings))
-    keys, m = _interior_rows(keys)
-    hs, w2 = keys.shape[-2:]
-    buf, counts = match_epipolar_masked(keys.reshape(-1, w2),
-                                        settings.disp_high, mask.num_tests)
-    buf = buf.reshape(keys.shape)
-    counts = counts.reshape(keys.shape[:-1])
-    return (_pad_rows(buf, m, -2, value=MASKED_SENTINEL),
-            _pad_rows(counts, m, -1))
+
+
+def _sparsematch_masked_impl(left, right, mask: FilterMask,
+                             settings: InferenceSettings):
+    """(buf (H, 2W) int32, row_counts (H,) int32) for one pair, or
+    (B, H, 2W) and (B, H) for a batch folded into one row sort."""
+    _check_masked(mask, tuple(left.shape[-2:]), settings)
+    rows, lead, m = _folded_key_rows(left, right, mask, settings)
+    buf, counts = match_epipolar_masked(rows, settings.disp_high,
+                                        mask.num_tests)
+    return (_unfold(buf, lead, m, MASKED_SENTINEL), _unfold(counts, lead, m))
 
 
 def _sparsematch_impl(left, right, mask: FilterMask,
@@ -193,6 +244,61 @@ def _sparsematch_global_rows_impl(left, right, mask: FilterMask,
     key, m = _interior_rows(_key_image(left, right, mask, settings))
     return match_global_rows(key, left.shape[1], settings.disp_high,
                              settings.vertical_tolerance, y_offset=m)
+
+
+def _check_rows(mask: FilterMask, shape, settings: InferenceSettings):
+    if not settings.epipolar_mode:
+        raise ValueError("row-form output is epipolar-only")
+    if not _packed_ok(mask, shape):
+        raise ValueError("row-form output needs <=30-test forests")
+    if not _rows_ok(mask, shape, settings):
+        raise ValueError(
+            f"row-form output needs the (x, d) pack key to fit 30 bits "
+            f"(width {shape[1]} with disp_high {settings.disp_high} does "
+            "not); use build_sparsematch")
+
+
+def _sparsematch_rows_impl(left, right, mask: FilterMask,
+                           settings: InferenceSettings):
+    """The row form: ((xs, ds) (H, W) int32 each, row_counts (H,)) for one
+    pair, or (B, H, W) and (B, H) for a batch folded into one row sort."""
+    _check_rows(mask, tuple(left.shape[-2:]), settings)
+    rows, lead, m = _folded_key_rows(left, right, mask, settings)
+    (xs, ds), counts = match_epipolar_rows(
+        None, None, None, None, settings.disp_high, key=rows,
+        num_tests=mask.num_tests)
+    return ((_unfold(xs, lead, m), _unfold(ds, lead, m)),
+            _unfold(counts, lead, m))
+
+
+def _sparsematch_masked_compact_impl(left, right, mask: FilterMask,
+                                     settings: InferenceSettings, chunk, k):
+    """The chunk-compacted masked contract: (buf (H, C) int32, row_counts
+    (H,), overflow bool) for one pair, or (B, H, C), (B, H) and one flag
+    for a batch folded into one compacted row sort."""
+    _check_masked(mask, tuple(left.shape[-2:]), settings)
+    rows, lead, m = _folded_key_rows(left, right, mask, settings)
+    buf, counts, ovf = match_epipolar_masked_compact(
+        rows, settings.disp_high, chunk, k, num_tests=mask.num_tests)
+    return (_unfold(buf, lead, m, MASKED_SENTINEL), _unfold(counts, lead, m),
+            ovf)
+
+
+def _sparsematch_global_compact_impl(left, right, mask: FilterMask,
+                                     settings: InferenceSettings, chunk, k):
+    """The chunk-compacted global contract for one (H, W) pair:
+    ((xs, ys, ds) (R, C) int32, counts (R,), overflow bool)."""
+    if settings.epipolar_mode:
+        raise ValueError("global compact output is for global mode; use "
+                         "build_sparsematch_masked_compact for epipolar")
+    if not _global_rows_ok(mask, tuple(left.shape), settings):
+        raise ValueError(
+            "global compact needs <=30-test forests and packable (y, x, d) "
+            "keys; use build_sparsematch")
+    key, m = _interior_rows(_key_image(left, right, mask, settings))
+    return match_global_rows_compact(
+        key, left.shape[1], settings.disp_high, settings.vertical_tolerance,
+        chunk=chunk, k=k, y_offset=m)
 
 
 def _stack(outs):
@@ -262,6 +368,43 @@ class SparsematchGlobalRows(_Matcher):
     _pair = staticmethod(_sparsematch_global_rows_impl)
 
 
+class SparsematchRows(_Matcher):
+    """The row-form epipolar matcher: ``((xs, ds), row_counts)``; assemble
+    one pair with :func:`row_supports_to_numpy`.  A batch folds into one
+    row sort."""
+
+    def _run(self, left, right):
+        return _sparsematch_rows_impl(left, right, self.mask, self.settings)
+
+
+class SparsematchMaskedCompact(_Matcher):
+    """The chunk-compacted masked matcher: ``(buf, row_counts,
+    overflow)``.  A batch folds into one compacted row sort with one
+    flag."""
+
+    def __init__(self, mask, settings, device, chunk, k):
+        super().__init__(mask, settings, device)
+        self.chunk, self.k = resolve_masked_compact_chunks(chunk, k)
+
+    def _run(self, left, right):
+        return _sparsematch_masked_compact_impl(left, right, self.mask,
+                                                self.settings, self.chunk,
+                                                self.k)
+
+
+class SparsematchGlobalCompact(_Matcher):
+    """The chunk-compacted global matcher: ``((xs, ys, ds), counts,
+    overflow)``.  A batch runs pair by pair, with a flag for each pair."""
+
+    def __init__(self, mask, settings, device, chunk, k):
+        super().__init__(mask, settings, device)
+        self.chunk, self.k = chunk, k
+
+    def _pair(self, left, right, mask, settings):
+        return _sparsematch_global_compact_impl(left, right, mask, settings,
+                                                self.chunk, self.k)
+
+
 def build_sparsematch_masked(forest_or_mask, settings: InferenceSettings,
                              device="cpu") -> SparsematchMasked:
     """The masked epipolar matcher as an ``nn.Module`` on ``device``.
@@ -291,6 +434,46 @@ def build_sparsematch_global_rows(forest_or_mask, settings: InferenceSettings,
     30-bit (y, x, d) pack."""
     return SparsematchGlobalRows(_as_mask(forest_or_mask), settings,
                                  torch.device(device))
+
+
+def build_sparsematch_rows(forest_or_mask, settings: InferenceSettings,
+                           device="cpu") -> SparsematchRows:
+    """The row-form epipolar matcher as an ``nn.Module`` on ``device``:
+    ((xs, ds) (H, W) each, row_counts (H,)), row y holding the supports
+    (xs[y, :c], y, ds[y, :c]), c = row_counts[y], ordered by x.  The same
+    support set as the flat matcher, without its compaction sort.  Needs
+    epipolar mode, <= 30 tests and a 30-bit (x, d) pack."""
+    return SparsematchRows(_as_mask(forest_or_mask), settings,
+                           torch.device(device))
+
+
+def build_sparsematch_masked_compact(forest_or_mask,
+                                     settings: InferenceSettings,
+                                     device="cpu", chunk=None,
+                                     k=None) -> SparsematchMaskedCompact:
+    """The low-density masked matcher as an ``nn.Module`` on ``device``:
+    (buf (H, 2W/chunk*k), row_counts (H,), overflow bool).  The same
+    support set as :func:`build_sparsematch_masked` while ``overflow`` is
+    False; when it is True (a chunk held more than ``k`` candidates) the
+    result is incomplete and the caller must re-run the full-width masked
+    matcher.  ``buf`` decodes with :func:`masked_supports_to_numpy`."""
+    return SparsematchMaskedCompact(_as_mask(forest_or_mask), settings,
+                                    torch.device(device), chunk, k)
+
+
+def build_sparsematch_global_compact(forest_or_mask,
+                                     settings: InferenceSettings,
+                                     device="cpu", chunk=None,
+                                     k=None) -> SparsematchGlobalCompact:
+    """The low-density global matcher as an ``nn.Module`` on ``device``:
+    ((xs, ys, ds) (R, C) each, counts (R,), overflow bool).  The same
+    support set as :func:`build_sparsematch_global_rows` while
+    ``overflow`` is False; when it is True the caller must re-run the
+    full-width global matcher.  ``chunk``/``k`` default by row width
+    (``match.global_compact_chunks``).  A batch runs pair by pair and
+    gives a flag for each pair."""
+    return SparsematchGlobalCompact(_as_mask(forest_or_mask), settings,
+                                    torch.device(device), chunk, k)
 
 
 def _numpy(t):
@@ -346,6 +529,20 @@ def global_row_supports_to_numpy(xs, ys, ds, counts) -> np.ndarray:
     sel = np.arange(xs.shape[1])[None, :] < c[:, None]
     out = np.stack([xs[sel], ys[sel], ds[sel]], axis=1).astype(np.int32)
     return out[np.lexsort((out[:, 2], out[:, 0], out[:, 1]))]
+
+
+def row_supports_to_numpy(xs_rows, ds_rows, row_counts) -> np.ndarray:
+    """Assemble one pair's row-form buffers into the (n, 3) int32 (x, y, d)
+    array, row-major and x-ascending within a row."""
+    xs, ds, c = _numpy(xs_rows), _numpy(ds_rows), _numpy(row_counts)
+    if xs.ndim != 2:
+        raise ValueError(
+            "row_supports_to_numpy takes one pair's (H, W) buffers; index "
+            "the batch axis first")
+    sel = np.arange(xs.shape[1])[None, :] < c[:, None]
+    ys = np.broadcast_to(np.arange(xs.shape[0], dtype=np.int32)[:, None],
+                         xs.shape)
+    return np.stack([xs[sel], ys[sel], ds[sel]], axis=1).astype(np.int32)
 
 
 def extract_descriptors(img, forest_or_mask, settings: InferenceSettings,

@@ -9,10 +9,13 @@ pixels carry unique per-position sentinel keys >= SENTINEL_BASE, so they
 never pair and the sort needs no validity operand; forests of 31 or 32
 tests fill all 32 code bits and sort on (invalid, code) instead.
 
-Output contracts: the masked buffer (``match_epipolar_masked``), the flat
-fixed-capacity buffer (``match_epipolar``, ``match_global``: compaction is
-a sort by position or by the packed support, as in the JAX package), and
-the segmented global rows (``match_global_rows``).  The sorts are
+Output contracts: the masked buffer (``match_epipolar_masked``), the row
+form (``match_epipolar_rows``), the flat fixed-capacity buffer
+(``match_epipolar``, ``match_global``: compaction is a sort by position or
+by the packed support, as in the JAX package), the segmented global rows
+(``match_global_rows``), and the chunk-compacted low-density variants of
+the masked and global contracts (``match_epipolar_masked_compact``,
+``match_global_rows_compact``) with their overflow flag.  The sorts are
 ``torch.sort``, the counterpart of XLA's ``lax.sort``; the bitonic row
 sort of ``ops.sort`` is the ``sort_impl="bitonic"`` alternative.
 """
@@ -257,10 +260,6 @@ def _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
     ``torch.sort``; ``"bitonic"`` pads them to N2 = max(256, pow2 >= 2W)
     with unique keys ``PAD_KEY_BASE + pos`` and runs the bitonic row sort
     kernel (``ops.sort.bitonic_sort_rows``)."""
-    if capacity is None:
-        raise NotImplementedError(
-            "the row-form contract is not ported yet (ROADMAP queue 1, "
-            "item 2)")
     if sort_impl not in ("auto", "bitonic"):
         raise ValueError(f"sort_impl must be 'auto' or 'bitonic', got "
                          f"{sort_impl!r}")
@@ -283,8 +282,128 @@ def _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
     else:
         key_s, pos_s = _sort_key_pos(key, num_tests)
     keep, src_x, d = _detect_pairs_packed(key_s, pos_s, w, disp_high)
+    if capacity is None:  # the row form (match_epipolar_rows)
+        return _row_pack(keep, src_x, d, w, disp_high)
     return _compact_supports(keep, src_x, _rows_of(keep), d, capacity, w, h,
                              disp_high)
+
+
+def _row_pack(keep, src_x, d, w, disp_high):
+    """Row-form output: per-row left-packed (xs, ds) (R, W) buffers and the
+    row counts, by one single-operand row sort of ``(x << bd) | (d +
+    disp_high)``.  A row holds at most W supports (each takes two sorted
+    slots), so the (R, W) slice is lossless."""
+    bd, bx = _bits(2 * disp_high), _bits(w - 1)
+    if bx + bd > 30:
+        raise ValueError(
+            f"row-form pack key needs x+d bits <= 30, got {bx}+{bd}; use the "
+            "flat matcher (match_epipolar) for this width/disp_high")
+    key = torch.where(keep, (src_x << bd) | (d + disp_high), _INT32_MAX)
+    key_s = torch.sort(key, dim=1, stable=False).values[:, :w]
+    counts = keep.sum(dim=1, dtype=torch.int32)
+    slot_ok = torch.arange(w, device=keep.device)[None, :] < counts[:, None]
+    xs = torch.where(slot_ok, key_s >> bd, 0)
+    ds = torch.where(slot_ok, (key_s & ((1 << bd) - 1)) - disp_high, 0)
+    return (xs, ds), counts
+
+
+def match_epipolar_rows(code_src, code_tar, valid_src, valid_tar, disp_high,
+                        key=None, num_tests=None):
+    """Row-form epipolar matcher: ((xs (H, W), ds (H, W)), row_counts (H,)).
+    The unique-collision rule of ``match_epipolar(packed=True)`` with the
+    supports left in per-row buffers: row y's supports are
+    (xs[y, :c], y, ds[y, :c]) with c = row_counts[y], ordered by x."""
+    return _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
+                                  disp_high, capacity=None, key=key,
+                                  num_tests=num_tests)
+
+
+# default (chunk, k) of the chunk-compacted masked contract: k/chunk = 1/2
+# makes the guard an effective per-row capacity of W candidates
+MASKED_COMPACT_CHUNKS = (128, 64)
+
+
+def resolve_masked_compact_chunks(chunk=None, k=None):
+    """The one rule for the masked-compact (chunk, k): both None ->
+    MASKED_COMPACT_CHUNKS; one None -> derived with its k/chunk ratio;
+    k > chunk is refused."""
+    s0, k0 = MASKED_COMPACT_CHUNKS
+    if chunk is None and k is None:
+        chunk, k = s0, k0
+    elif chunk is None:
+        chunk = k * (s0 // k0)
+    elif k is None:
+        k = max(1, chunk * k0 // s0)
+    if k > chunk:
+        raise ValueError(
+            f"masked-compact chunk capacity k={k} exceeds chunk size "
+            f"S={chunk}; pass k <= chunk")
+    return chunk, k
+
+
+def _strided_chunks(t, h, chunk, nc):
+    """(h * nc, chunk) strided chunks of an (h, chunk * nc) image: chunk c
+    of a row holds its columns {j : j % nc == c}."""
+    return t.reshape(h, chunk, nc).transpose(1, 2).reshape(h * nc, chunk)
+
+
+def _sort_with(key, payload):
+    """Unstable sort of each row of ``key`` with ``payload`` alongside."""
+    key_s, idx = torch.sort(key, dim=-1, stable=False)
+    return key_s, torch.gather(payload, -1, idx)
+
+
+def match_epipolar_masked_compact(key, disp_high, chunk=None, k=None,
+                                  num_tests=None, row_overflow=False):
+    """Low-density masked contract: strided chunked pre-compaction shrinks
+    the row sort.
+
+    Each (2W) key row splits into nc = 2W/chunk strided chunks (chunk c
+    holds the positions p with p % nc == c); each chunk is sorted (codes
+    below SENTINEL_BASE sort first), its first ``k`` columns survive, and
+    one (nc*k) row sort finishes the row.  When a chunk holds more than
+    ``k`` candidates the ``overflow`` flag is set and the caller must re-run
+    the full-width masked matcher (``match_epipolar_masked``).
+
+    Returns (buf (H, nc*k) int32, row_counts (H,), overflow): ``buf``
+    decodes like the full-width masked buffer.  ``overflow`` is a bool
+    scalar, or per row ((H,) bool) with ``row_overflow=True``."""
+    h, w2 = key.shape
+    w = w2 // 2
+    chunk, k = resolve_masked_compact_chunks(chunk, k)
+    pos = torch.arange(w2, dtype=torch.int32, device=key.device).expand(h, -1)
+    if w2 % chunk:
+        # pad to a chunk multiple with unique non-pairing sentinels
+        # (positions >= 2W never pass the cross check)
+        pad_pos = torch.arange(w2, w2 + chunk - w2 % chunk, dtype=torch.int32,
+                               device=key.device).expand(h, -1)
+        key = torch.cat([key, SENTINEL_BASE + pad_pos], dim=1)
+        pos = torch.cat([pos, pad_pos], dim=1)
+    w2p = key.shape[1]
+    nc = w2p // chunk
+
+    def chunk_overflow(kc):
+        over = (kc < SENTINEL_BASE).sum(dim=1) > k
+        return over.reshape(h, nc).any(dim=1) if row_overflow else over.any()
+
+    if _pack_ok(num_tests, w2p):
+        # one operand: pos rides inside the key through both sorts
+        pb = _pos_bits(w2p)
+        kc = _strided_chunks(_pack_keypos(key, pos, pb), h, chunk, nc)
+        overflow = chunk_overflow(kc)
+        ks = torch.sort(kc, dim=1, stable=False).values[:, :k]
+        packed_s = torch.sort(ks.reshape(h, nc * k), dim=1,
+                              stable=False).values
+        key_s, pos_s = _unpack_keypos(packed_s, pb)
+    else:
+        kc = _strided_chunks(key, h, chunk, nc)
+        overflow = chunk_overflow(kc)
+        ks, ps = _sort_with(kc, _strided_chunks(pos, h, chunk, nc))
+        key_s, pos_s = _sort_with(ks[:, :k].reshape(h, nc * k),
+                                  ps[:, :k].reshape(h, nc * k))
+    keep, src_x, d = _detect_pairs_packed(key_s, pos_s, w, disp_high)
+    out, counts = _masked_emit(keep, src_x, d, w, disp_high)
+    return out, counts, overflow
 
 
 def _global_pairs(code_src, code_tar, valid_src, valid_tar, packed=False):
@@ -349,24 +468,33 @@ def match_global_rows(key_img, w: int, disp_high: int,
     Returns ((xs, ys, ds) (R, C) int32, counts (R,)): segment r holds
     (xs[r, :c], ys[r, :c], ds[r, :c]) with c = counts[r].  ``y_offset`` is
     the row of ``key_img``'s first row in the full image."""
-    h, w2 = key_img.shape
-    if w2 != 2 * w:
-        raise ValueError(f"key image width {w2} is not 2 * {w}")
-    return _global_rows_core(key_img.reshape(-1), w, w2, h, disp_high,
+    h, w2 = _check_global_key(key_img, w)
+    pos = torch.arange(h * w2, dtype=torch.int32, device=key_img.device)
+    return _global_rows_core(key_img.reshape(-1), pos, w, w2, h, disp_high,
                              vertical_tolerance, num_rows, y_offset)
 
 
-def _global_rows_core(key, w, w2, h, disp_high, vertical_tolerance,
+def _check_global_key(key_img, w):
+    h, w2 = key_img.shape
+    if w2 != 2 * w:
+        raise ValueError(f"key image width {w2} is not 2 * {w}")
+    return h, w2
+
+
+def _global_rows_core(key, pos, w, w2, h, disp_high, vertical_tolerance,
                       num_rows, y_offset):
-    """The segmented global contract over the flat keys of an (h, w2) key
-    image: a sort index decodes as (row, col) via divmod(w2)."""
+    """The segmented global contract over flat ``key``s with their
+    ``pos`` payload: one flat sort of (key, pos) finds the globally unique
+    collisions, and a segmented row sort packs the (R, C) output.  A ``pos``
+    decodes as (row, col) of the original (h, w2) key image via
+    divmod(w2); entries whose keys are unique (pads, sentinels) are never
+    emitted, so their pos may be anything."""
     bx, by, bd = _bits(w - 1), _bits(h - 1 + y_offset), _bits(2 * disp_high)
     if by + bx + bd > 30:
         raise ValueError(f"global row-form pack needs y+x+d bits <= 30, got "
                          f"{by}+{bx}+{bd}; use match_global")
     n = key.shape[0]
-    key_s, idx = torch.sort(key, stable=False)
-    pos_s = idx.to(torch.int32)
+    key_s, pos_s = _sort_with(key, pos)
     eq = key_s[:-1] == key_s[1:]
     pair = eq & ~F.pad(eq[:-1], (1, 0)) & ~F.pad(eq[1:], (0, 1))
     col_l, row_l = pos_s[:-1] % w2, pos_s[:-1] // w2
@@ -395,3 +523,80 @@ def _global_rows_core(key, w, w2, h, disp_high, vertical_tolerance,
     xs = torch.where(slot_ok, (pk_s >> bd) & ((1 << bx) - 1), 0)
     ys = torch.where(slot_ok, pk_s >> (bd + bx), 0)
     return (xs, ys, ds), counts
+
+
+def global_compact_chunks(w2: int):
+    """Default (chunk, k) of the chunk-compacted global contract: k/chunk =
+    1/4 on wide rows (2W >= 2048), and the masked-compact 1/2 on narrower
+    ones, where the strided chunk count is small and 1/4 would overflow on
+    ordinary textured rows."""
+    return (512, 128) if w2 >= 2048 else (128, 64)
+
+
+def resolve_global_compact_chunks(w2: int, chunk=None, k=None):
+    """The global-compact (chunk, k) from the width rule
+    (:func:`global_compact_chunks`), a missing one derived with the rule's
+    k/chunk ratio; k > chunk is refused."""
+    dchunk, dk = global_compact_chunks(w2)
+    if chunk is None and k is None:
+        chunk, k = dchunk, dk
+    elif chunk is None:
+        chunk = k * (dchunk // dk)
+    elif k is None:
+        k = max(1, chunk // (dchunk // dk))
+    if k > chunk:
+        raise ValueError(
+            f"global-compact chunk capacity k={k} exceeds chunk size "
+            f"S={chunk}; pass k <= chunk (width defaults: "
+            "match.global_compact_chunks)")
+    return chunk, k
+
+
+def match_global_rows_compact(key_img, w: int, disp_high: int,
+                              vertical_tolerance: int, chunk=None, k=None,
+                              num_rows: int = 0, y_offset: int = 0):
+    """Low-density global contract: strided chunked pre-compaction
+    (:func:`_strided_chunk_compact`) shrinks the flat uniqueness sort from
+    2HW to 2HW * k/chunk keys.  Every candidate survives unless a chunk
+    overflows, so the multiset of codes, the global uniqueness domain, is
+    unchanged; the dropped entries are sentinels, which never pair across
+    the images.  When ``overflow`` is set the caller must re-run
+    :func:`match_global_rows`.  Returns ((xs, ys, ds) (R, C'), counts,
+    overflow), decoded like the full contract."""
+    h, w2 = _check_global_key(key_img, w)
+    chunk, k = resolve_global_compact_chunks(w2, chunk, k)
+    pos = torch.arange(h * w2, dtype=torch.int32,
+                       device=key_img.device).reshape(h, w2)
+    ks, ps, overflow = _strided_chunk_compact(key_img, pos, chunk, k,
+                                              pos_never=h * w2)
+    out = _global_rows_core(ks, ps, w, w2, h, disp_high, vertical_tolerance,
+                            num_rows, y_offset)
+    return out + (overflow,)
+
+
+def _strided_chunk_compact(key_img, pos_img, chunk: int, k: int,
+                           pos_never: int):
+    """Strided chunked pre-compaction of the global contracts: each key row
+    splits into nc strided chunks, each chunk sorts (codes below
+    SENTINEL_BASE first) and its first ``k`` columns survive.  ``pos_img``
+    is the caller's position payload (global flat positions on a shard);
+    ``pos_never`` is the payload of the chunk-multiple column pads, which
+    are never emitted.  Returns (keys (h*nc*k,), pos (h*nc*k,), overflow),
+    ``overflow`` set iff some chunk held more than ``k`` candidates."""
+    h, w2 = key_img.shape
+    dev = key_img.device
+    if w2 % chunk:
+        # pad with keys unique within the image and above every real
+        # sentinel (SENTINEL_BASE + [0, 2W)), so pads never form a run
+        padn = chunk - w2 % chunk
+        pad_k = (SENTINEL_BASE + w2
+                 + torch.arange(h, dtype=torch.int32, device=dev)[:, None] * padn
+                 + torch.arange(padn, dtype=torch.int32, device=dev)[None, :])
+        key_img = torch.cat([key_img, pad_k], dim=1)
+        pos_img = torch.cat([pos_img, torch.full(
+            (h, padn), pos_never, dtype=torch.int32, device=dev)], dim=1)
+    nc = key_img.shape[1] // chunk
+    kc = _strided_chunks(key_img, h, chunk, nc)
+    overflow = ((kc < SENTINEL_BASE).sum(dim=1) > k).any()
+    ks, ps = _sort_with(kc, _strided_chunks(pos_img, h, chunk, nc))
+    return ks[:, :k].reshape(-1), ps[:, :k].reshape(-1), overflow

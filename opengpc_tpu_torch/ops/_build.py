@@ -33,7 +33,9 @@ PTXAS_FLAGS = ("-Xptxas", "-v")
 # stream, "i" an int
 _ENTRY_POINTS = {
     "ogpc_fused_keys": ("ppiiiiiipiiiiip", "i"),
+    "ogpc_fused_keys_slab": ("ppiiiipiiiiiip", "i"),
     "ogpc_fused_codes": ("pppiiipiip", "i"),
+    "ogpc_fused_census": ("ppiip", "i"),
     "ogpc_bitonic_sort_rows": ("ppppiip", "i"),
     "ogpc_fused_sparsematch_rows": ("pppppiiipiiip", "i"),
     "ogpc_cuda_error_string": ("i", "s"),

@@ -1,17 +1,20 @@
 """The fused code kernels: box blur, leaf codes and Sobel candidates in one
-pass, emitting either the matcher's sentinel-packed sort keys
-(``fused_keys``) or the codes and candidates as two images
-(``fused_codes``).
+pass, emitting the matcher's sentinel-packed sort keys of a whole image
+(``fused_keys``) or of a row slab of a larger image (``fused_keys_slab``,
+the sharded frame's kernel), or the codes and candidates as two images
+(``fused_codes``); and the 5x5 census (``fused_census``).
 
 Each wrapper launches its kernel (``csrc/fused_keys.cu``,
-``csrc/fused_codes.cu``; built at first use by ``ops._build``) on a CUDA
+``csrc/fused_keys_slab.cu``, ``csrc/fused_codes.cu``,
+``csrc/fused_census.cu``; built at first use by ``ops._build``) on a CUDA
 tensor and raises on any failure; on a CPU tensor it runs its plain twin
-(``fused_keys_plain``, ``fused_codes_plain``).  Both twins share one body,
-the same math as whole-image tensor ops, written after
-``opengpc_tpu.ops.fused``'s ``tile_codes_and_cand`` with the image as one
-tile; both kernels share ``csrc/tile_codes.cuh``.  ``fused_keys.launches``
-and ``fused_codes.launches`` count kernel launches, so a run can show that
-it went through the kernels.
+(``fused_keys_plain``, ``fused_keys_slab_plain``, ``fused_codes_plain``,
+``ops.census.census5x5``).  The code twins share one body, the same math
+as whole-window tensor ops, written after ``opengpc_tpu.ops.fused``'s
+``tile_codes_and_cand`` with the image or slab as one tile; the code
+kernels share ``csrc/tile_codes.cuh``.  Each wrapper's ``launches``
+attribute counts its kernel launches, so a run can show that it went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -40,45 +43,63 @@ def mask_tests(mask: FilterMask):
     return tuple(map(tuple, _tests_array(mask).tolist()))
 
 
-def fused_codes_plain(img: torch.Tensor, mask: FilterMask,
-                      gradient_threshold: int):
-    """Plain-PyTorch twin of the code kernel, and the body of the key
-    kernel's twin: (int32 leaf codes, bool candidates) of a (..., H, W)
-    uint8 image.  At 32 tests a code fills all 32 bits and wraps as JAX's
-    int32 ``code*2+bit`` does."""
-    require_u8(img)
-    h, w = img.shape[-2:]
-    dev = img.device
-    x32 = F.pad(img.to(torch.int32), (PAD, PAD, PAD, PAD))
-    hc, wc = h + 26, w + 26  # code-support region: image rows -13 .. h+12
+def _codes_body(x32: torch.Tensor, y0: int, h: int, mask: FilterMask,
+                gradient_threshold: int):
+    """The twins' one body: (int32 leaf codes, bool candidates) of image
+    rows [y0, y0 + th) of an image of height ``h``, from the (..., th + 28,
+    w + 28) int32 window ``x32`` that holds image rows [y0 - 14, y0 + th +
+    14) and columns [-14, w + 14), zeros outside the image.  The box border
+    and the candidate margin are taken in image rows, so a slab's rows are
+    those of the whole image.  At 32 tests a code fills all 32 bits and
+    wraps as JAX's int32 ``code*2+bit`` does."""
+    th, w = x32.shape[-2] - 2 * PAD, x32.shape[-1] - 2 * PAD
+    dev = x32.device
+    hc, wc = th + 26, w + 26  # code-support region: rows y0-13 .. y0+th+12
 
     # box 3x3 on the code-support region; region (r, c) = image
-    # (r - 13, c - 13) = padded (r + 1, c + 1)
-    total = torch.zeros(img.shape[:-2] + (hc, wc), dtype=torch.int32,
+    # (y0 + r - 13, c - 13) = window (r + 1, c + 1)
+    total = torch.zeros(x32.shape[:-2] + (hc, wc), dtype=torch.int32,
                         device=dev)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             total += x32[..., 1 + dy:1 + dy + hc, 1 + dx:1 + dx + wc]
     blurred = torch.div(total, 9, rounding_mode="floor")
-    rr = torch.arange(hc, dtype=torch.int32, device=dev)[:, None]
+    rr = torch.arange(hc, dtype=torch.int32, device=dev)[:, None] + y0
     cc = torch.arange(wc, dtype=torch.int32, device=dev)[None, :]
     # valid box region 1 <= y <= h-3, 2 <= x <= w-2, in region coordinates
     box_valid = (rr >= 14) & (rr <= h + 10) & (cc >= 15) & (cc <= w + 11)
     smooth = torch.where(box_valid, blurred, torch.zeros_like(blurred))
 
-    code = torch.zeros(img.shape, dtype=torch.int32, device=dev)
+    code = torch.zeros(x32.shape[:-2] + (th, w), dtype=torch.int32, device=dev)
     for iy, ix, jy, jx, tau in mask_tests(mask):
-        a = smooth[..., 13 + iy:13 + iy + h, 13 + ix:13 + ix + w]
-        b = smooth[..., 13 + jy:13 + jy + h, 13 + jx:13 + jx + w]
+        a = smooth[..., 13 + iy:13 + iy + th, 13 + ix:13 + ix + w]
+        b = smooth[..., 13 + jy:13 + jy + th, 13 + jx:13 + jx + w]
         code = code * 2 + (a > b - tau).to(torch.int32)
 
     sx, sy = _sobel_nums(
-        lambda dy, dx: x32[..., PAD + dy:PAD + dy + h, PAD + dx:PAD + dx + w])
+        lambda dy, dx: x32[..., PAD + dy:PAD + dy + th, PAD + dx:PAD + dx + w])
     grad = sx * sx + sy * sy > int(gradient_threshold) ** 2
-    yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    yy = torch.arange(th, dtype=torch.int32, device=dev)[:, None] + y0
     xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
     interior = (yy >= MARGIN) & (yy < h - MARGIN) & (xx >= MARGIN) & (xx < w - MARGIN)
     return code, grad & interior
+
+
+def fused_codes_plain(img: torch.Tensor, mask: FilterMask,
+                      gradient_threshold: int):
+    """Plain-PyTorch twin of the code kernel, and the body of the key
+    kernel's twin: (int32 leaf codes, bool candidates) of a (..., H, W)
+    uint8 image."""
+    require_u8(img)
+    x32 = F.pad(img.to(torch.int32), (PAD, PAD, PAD, PAD))
+    return _codes_body(x32, 0, img.shape[-2], mask, gradient_threshold)
+
+
+def _keys(code, cand, pos_base, sentinel_base, pack_bits=0):
+    w = code.shape[-1]
+    pos = torch.arange(w, dtype=torch.int32, device=code.device) + int(pos_base)
+    cand_key = (code << int(pack_bits)) | pos if pack_bits else code
+    return torch.where(cand, cand_key, pos + int(sentinel_base))
 
 
 def fused_keys_plain(img: torch.Tensor, mask: FilterMask,
@@ -89,10 +110,38 @@ def fused_keys_plain(img: torch.Tensor, mask: FilterMask,
     ``(code << pack_bits) | (pos_base + x)`` for candidates when
     ``pack_bits > 0``."""
     code, cand = fused_codes_plain(img, mask, gradient_threshold)
-    w = img.shape[-1]
-    pos = torch.arange(w, dtype=torch.int32, device=img.device) + int(pos_base)
-    cand_key = (code << int(pack_bits)) | pos if pack_bits else code
-    return torch.where(cand, cand_key, pos + int(sentinel_base))
+    return _keys(code, cand, pos_base, sentinel_base, pack_bits)
+
+
+def _slab_rows(slab: torch.Tensor, y0: int, h_total: int) -> int:
+    """The output rows sh of a (sh + 28, W) slab at image row ``y0`` of an
+    image of ``h_total`` rows; raises on a slab that does not fit."""
+    require_u8(slab)
+    if slab.dim() != 2:
+        raise ValueError(f"expected an (sh + {2 * PAD}, W) slab, got "
+                         f"{tuple(slab.shape)}")
+    sh = slab.shape[0] - 2 * PAD
+    if sh < 1 or not 0 <= y0 <= h_total - sh:
+        raise ValueError(f"a slab of {tuple(slab.shape)} (halo {PAD} rows "
+                         f"each side) at row {y0} does not fit an image of "
+                         f"{h_total} rows")
+    return sh
+
+
+def fused_keys_slab_plain(slab: torch.Tensor, mask: FilterMask,
+                          gradient_threshold: int, pos_base: int,
+                          sentinel_base: int, y0: int,
+                          h_total: int) -> torch.Tensor:
+    """Plain-PyTorch twin of the slab key kernel: the (sh, W) keys of a
+    (sh + 28, W) uint8 slab holding image rows [y0 - 14, y0 + sh + 14) of
+    an image of ``h_total`` rows (zeros outside the image), equal to rows
+    [y0, y0 + sh) of ``fused_keys_plain`` on the whole image.  The slab
+    carries its halo rows, so only the columns are zero-padded."""
+    _slab_rows(slab, y0, h_total)
+    x32 = F.pad(slab.to(torch.int32), (PAD, PAD))
+    code, cand = _codes_body(x32, int(y0), int(h_total), mask,
+                             gradient_threshold)
+    return _keys(code, cand, pos_base, sentinel_base)
 
 
 def check_mask(mask: FilterMask) -> None:
@@ -231,3 +280,99 @@ def fused_codes(img: torch.Tensor, mask: FilterMask,
 
 
 fused_codes.launches = 0
+
+
+def fused_keys_slab_into(slab: torch.Tensor, out: torch.Tensor,
+                         col_offset: int, mask: FilterMask,
+                         gradient_threshold: int, pos_base: int,
+                         sentinel_base: int, y0: int, h_total: int) -> None:
+    """Write the keys of a (sh + 28, W) uint8 slab (see
+    :func:`fused_keys_slab_plain`) into columns [col_offset, col_offset +
+    W) of the (sh, Wout) int32 ``out``: the kernel of
+    ``csrc/fused_keys_slab.cu`` for a CUDA tensor, the plain twin for a
+    CPU one."""
+    sh = _slab_rows(slab, y0, h_total)
+    check_mask(mask)
+    w = slab.shape[1]
+    if (out.dtype != torch.int32 or out.dim() != 2 or out.shape[0] != sh
+            or col_offset + w > out.shape[1]):
+        raise ValueError(f"fused_keys_slab: output {out.dtype} "
+                         f"{tuple(out.shape)} cannot hold ({sh}, {w}) keys "
+                         f"at column {col_offset}")
+    if out.device != slab.device:
+        raise ValueError(f"fused_keys_slab: slab on {slab.device}, output "
+                         f"on {out.device}")
+    if slab.device.type == "cpu":
+        out[:, col_offset:col_offset + w] = fused_keys_slab_plain(
+            slab, mask, gradient_threshold, pos_base, sentinel_base, y0,
+            h_total)
+        return
+    if not slab.is_cuda:
+        raise ValueError(f"fused_keys_slab: no kernel for {slab.device} "
+                         "tensors")
+    if not out.is_contiguous():
+        raise ValueError("fused_keys_slab: output must be contiguous")
+    from opengpc_tpu_torch.ops._build import check_launch, load_library
+
+    slab = slab.contiguous()
+    tests = _tests_array(mask)
+    lib = load_library()
+    with torch.cuda.device(slab.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ogpc_fused_keys_slab(
+            slab.data_ptr(), out.data_ptr(), sh, w, out.shape[1], col_offset,
+            tests.ctypes.data, tests.shape[0], int(gradient_threshold) ** 2,
+            int(pos_base), int(sentinel_base), int(y0), int(h_total), stream)
+    check_launch("fused_keys_slab", rc)
+    fused_keys_slab.launches += 1
+
+
+def fused_keys_slab(slab: torch.Tensor, mask: FilterMask,
+                    gradient_threshold: int, pos_base: int,
+                    sentinel_base: int, y0: int,
+                    h_total: int) -> torch.Tensor:
+    """(sh, W) int32 sentinel-packed matcher keys of a row slab: the (sh +
+    28, W) uint8 ``slab`` holds image rows [y0 - 14, y0 + sh + 14) of an
+    image of ``h_total`` rows, zeros outside the image.  Equal to rows
+    [y0, y0 + sh) of :func:`fused_keys` on the whole image: the box border
+    and the candidate margin are taken in image rows.  ``y0`` is a host
+    int, the kernel's row offset."""
+    sh = _slab_rows(slab, y0, h_total)
+    out = torch.empty((sh, slab.shape[1]), dtype=torch.int32,
+                      device=slab.device)
+    fused_keys_slab_into(slab, out, 0, mask, gradient_threshold, pos_base,
+                         sentinel_base, y0, h_total)
+    return out
+
+
+fused_keys_slab.launches = 0
+
+
+def fused_census(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) int32 5x5 census codes of an (H, W) uint8 image in one
+    pass: the kernel of ``csrc/fused_census.cu`` for a CUDA tensor,
+    ``ops.census.census5x5`` (its plain twin) for a CPU one."""
+    from opengpc_tpu_torch.ops.census import census5x5
+
+    require_u8(img)
+    if img.dim() != 2:
+        raise ValueError(f"expected an (H, W) image, got {tuple(img.shape)}")
+    if img.device.type == "cpu":
+        return census5x5(img)
+    if not img.is_cuda:
+        raise ValueError(f"fused_census: no kernel for {img.device} tensors")
+    from opengpc_tpu_torch.ops._build import check_launch, load_library
+
+    img = img.contiguous()
+    out = torch.empty(img.shape, dtype=torch.int32, device=img.device)
+    lib = load_library()
+    with torch.cuda.device(img.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ogpc_fused_census(img.data_ptr(), out.data_ptr(),
+                                   *img.shape, stream)
+    check_launch("fused_census", rc)
+    fused_census.launches += 1
+    return out
+
+
+fused_census.launches = 0

@@ -222,8 +222,14 @@ def test_match_epipolar_bitonic_matches_jax():
     assert all(torch.equal(x, y) for x, y in zip(auto, tout))
     with pytest.raises(ValueError, match="sort_impl"):
         tmatch.match_epipolar(*targs, 64, 4096, packed=True, sort_impl="lax")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmatch._match_epipolar_packed(*targs, 64, None)
+    # capacity=None is the row form, after either sort
+    for impl in ("auto", "bitonic"):
+        (jxs, jds), jcounts = jmatch._match_epipolar_packed(
+            *args, 64, None, sort_impl=impl)
+        (txs, tds), tcounts = tmatch._match_epipolar_packed(
+            *targs, 64, None, sort_impl=impl, num_tests=20)
+        assert_same((jxs, jds, jcounts), (txs, tds, tcounts))
+        assert int(tcounts.sum()) == int(tc)
 
 
 @pytest.mark.parametrize("case", ["t32_epipolar", "t32_global", "global_wide",

@@ -27,6 +27,7 @@ def test_port_imports_no_jax():
     code = ("import sys, opengpc_tpu_torch, opengpc_tpu_torch.infer, "
             "opengpc_tpu_torch.match, opengpc_tpu_torch.ops.fused, "
             "opengpc_tpu_torch.ops.sort, opengpc_tpu_torch.ops.fused_match, "
+            "opengpc_tpu_torch.ops.census, opengpc_tpu_torch.parallel, "
             "opengpc_tpu_torch.ops._build\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'opengpc_tpu.')) or m == 'opengpc_tpu')\n"
