@@ -3,20 +3,25 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the checkout and holds each of them (fused
-keys, slab keys, fused codes, census, bitonic row sort, fused match)
-against its plain-PyTorch twin bit for bit, and the census also against
-the native oracle.  Then it drives every level-1 route of the one-call
-``sparsematch`` at 436x1024: the masked epipolar route, the global-rows
-route at the library's default settings, and four cases of the flat route;
-the selectable variants (fused match, bitonic sort) and
-``extract_descriptors``; the row-sharded single frame (every contract, n =
-1 over a one-rank NCCL process group and n = 2, 4 in one process) and one
-census call.  Each path runs with every launch counter at 0 and is read
-right after, so the run shows which kernels it went through.  Supports are
-checked against the native oracle (``cpp/build/oracle``), the CPU pipeline
-or the single-device module and, where the mode allows, the true
-disparity.  Last it times the kernels against their twins, the routes per
-pair and the sharded module against the single-device one with CUDA events
+keys, one image or both images of a batch of pairs in one launch; slab
+keys, fused codes, census, bitonic row sort at every row length from 256
+to 16384 on random, equal, two-valued, sorted, reversed and real padded
+matcher rows; fused match) against its plain-PyTorch twin bit for bit,
+and the census also against the native oracle.  Then it drives every
+level-1 route of the one-call ``sparsematch`` at 436x1024: the masked
+epipolar route, the global-rows route at the library's default settings,
+and four cases of the flat route; the selectable variants (fused match,
+bitonic sort) and ``extract_descriptors``; the row-sharded single frame
+(every contract, n = 1 over a one-rank NCCL process group and n = 2, 4
+in one process) and one census call.  Each path runs with every launch
+counter at 0 and is read right after, so the run shows which kernels it
+went through.  Supports are checked against the native oracle
+(``cpp/build/oracle``), the CPU pipeline or the single-device module and,
+where the mode allows, the true disparity.  Last it times the kernels
+against their twins (the bitonic sort also against ``torch.sort`` on the
+same rows, in turns), each beside its bound, the key kernel at B = 1 and
+4 on the dense and sparse pairs and at 2160x3840, the routes per pair
+and the sharded module against the single-device one with CUDA events
 and ``torch.profiler``.  Every phase prints one JSON line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits non-zero before doing
@@ -44,29 +49,75 @@ MIN_ACCURACY = 0.99
 KERNEL_SHAPES = ((436, 1024), (37, 130), (129, 1023), (1080, 1920),
                  (2160, 3840))
 MATCH_SHAPES = ((436, 1024), (37, 130), (129, 1023), (1080, 1920))
+PAIR_SHAPES = ((436, 1024), (37, 130), (129, 1023))  # W % 4 = 0, 2, 3
 KERNELS = {  # name -> (wrapper module, source, the TPU kernel it replaces)
     "fused_keys": ("opengpc_tpu_torch.ops.fused",
                    "opengpc_tpu_torch/csrc/fused_keys.cu",
-                   "opengpc_tpu/ops/fused.py:203"),
+                   "opengpc_tpu/ops/fused.py:419"),
     "fused_codes": ("opengpc_tpu_torch.ops.fused",
                     "opengpc_tpu_torch/csrc/fused_codes.cu",
-                    "opengpc_tpu/ops/fused.py:186"),
+                    "opengpc_tpu/ops/fused.py:295"),
     "bitonic_sort_rows": ("opengpc_tpu_torch.ops.sort",
                           "opengpc_tpu_torch/csrc/bitonic_sort.cu",
-                          "opengpc_tpu/ops/sort.py:68"),
+                          "opengpc_tpu/ops/sort.py:99"),
     "fused_sparsematch_rows": ("opengpc_tpu_torch.ops.fused_match",
                                "opengpc_tpu_torch/csrc/fused_match.cu",
-                               "opengpc_tpu/ops/fused_match.py:52"),
+                               "opengpc_tpu/ops/fused_match.py:146"),
     "fused_keys_slab": ("opengpc_tpu_torch.ops.fused",
                         "opengpc_tpu_torch/csrc/fused_keys_slab.cu",
-                        "opengpc_tpu/ops/fused.py:432"),
+                        "opengpc_tpu/ops/fused.py:495"),
     "fused_census": ("opengpc_tpu_torch.ops.fused",
                      "opengpc_tpu_torch/csrc/fused_census.cu",
-                     "opengpc_tpu/ops/fused.py:330"),
+                     "opengpc_tpu/ops/fused.py:377"),
 }
+# the H100 SXM's device-memory rate and INT32 instruction rate (132 SMs
+# x 64 INT32 lanes x 1.98 GHz), the two sides of every kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations of the code math, counted in the key kernel's own
+# two-lane form (StripTile in csrc/tile_codes.cuh):
+# - the box, per 4 columns of a row: 3 byte permutes and 2 funnel shifts
+#   widen the bytes to 16-bit lanes, 2 three-input adds make the
+#   horizontal and 2 the vertical 3-sums, 2 x 6 the lane-wise /9 and 2
+#   the border masks (23);
+# - the Sobel, per strip of 4 pixels inside the candidate margin: 6
+#   column sums (t + 2m + b and t - b, 3 each), and per pixel 3 for the
+#   two gradient sums, 2 x 3 for their truncating /9, 2 for the squared
+#   norm, 1 compare, 3 for the column margin and 1 to set the bit (82);
+# - the key of every pixel: position, sentinel and select (3);
+# - a candidate's code: 1.5 a test (a three-input add, a shift and a
+#   merge per word of two lanes) and 7 to turn the lane accumulators
+#   into the MSB-first code.
+BOX_OPS, SOBEL_OPS, KEY_OPS = 23 / 4, 82 / 4, 3
+CODE_OPS, TEST_OPS = 7, 1.5
 SLAB_SHAPES = ((436, 1024), (2160, 3840))
 CENSUS_SHAPES = ((5, 6), (37, 130), (129, 1023), (436, 1024), (1081, 1919),
                  (2160, 3840))
+
+
+def bound(nbytes, ops):
+    """The least time the card could take for work that moves ``nbytes``
+    of device memory and makes ``ops`` integer operations: (ms, what sets
+    it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def code_ops(images, h, w, candidates, tests):
+    """Integer operations of the code math on ``images`` h x w images,
+    the codes made for ``candidates`` of their pixels."""
+    interior = max(h - 2 * 13, 0) * max(w - 2 * 13, 0)
+    return int(images * (h * w * (BOX_OPS + KEY_OPS) + interior * SOBEL_OPS)
+               + candidates * (CODE_OPS + tests * TEST_OPS))
+
+
+def network_ops(rows, n):
+    """Integer operations of the bitonic network on (rows, n): n log2(n)
+    (log2(n) + 1) / 4 compare-exchanges a row, each a compare, a min, a
+    max and two payload selects."""
+    lg = n.bit_length() - 1
+    return 5 * rows * n * lg * (lg + 1) // 4
 
 
 def emit(phase, **fields):
@@ -95,7 +146,10 @@ class Launches:
     def __init__(self):
         self.total = dict.fromkeys(KERNELS, 0)
 
-    def run(self, fn):
+    def run(self, path, fn, expect):
+        """Drive ``fn`` as the path named ``path``; fails unless each kernel
+        in ``expect`` launched exactly its count there and every other
+        kernel none."""
         for name in KERNELS:
             wrapper(name).launches = 0
         out = fn()
@@ -103,6 +157,9 @@ class Launches:
         counts = {name: wrapper(name).launches for name in KERNELS}
         for name, n in counts.items():
             self.total[name] += n
+        want = {name: expect.get(name, 0) for name in KERNELS}
+        if counts != want:
+            raise SystemExit(f"{path}: launches {counts}, expected {want}")
         return out, counts
 
 
@@ -138,6 +195,17 @@ def random_masks(seed=1234):
             rng.integers(-13, 14, (t, 2)), rng.integers(-13, 14, (t, 2)),
             rng.integers(-10, 11, t), 1))
     return masks
+
+
+def wide_tau_mask(seed=4321):
+    """A 32-test random mask with tau in [-400, 400]: thresholds past the
+    +-255 that two uint8 values can differ by."""
+    from opengpc_tpu_torch.forest import filter_mask_from_numpy
+
+    rng = np.random.default_rng(seed)
+    return filter_mask_from_numpy(rng.integers(-13, 14, (32, 2)),
+                                  rng.integers(-13, 14, (32, 2)),
+                                  rng.integers(-400, 401, 32), 1)
 
 
 def cuda_ms(fn, iters):
@@ -210,11 +278,10 @@ def phase_build():
 def phase_kernel_vs_twin():
     """Kernel vs plain twin on the card, bit for bit; returns the largest
     absolute difference seen (0 when every case agrees)."""
-    from opengpc_tpu_torch import (InferenceSettings, load_forest,
-                                   make_filter_mask)
-    from opengpc_tpu_torch.infer import _batched_key_images
+    from opengpc_tpu_torch import load_forest, make_filter_mask
     from opengpc_tpu_torch.match import SENTINEL_BASE, _pack_ok, _pos_bits
-    from opengpc_tpu_torch.ops.fused import fused_keys, fused_keys_plain
+    from opengpc_tpu_torch.ops.fused import (fused_key_image, fused_keys,
+                                             fused_keys_plain)
 
     zero = load_forest(os.path.join(REPO, "forests", "defaultZeroForest.txt"))
     tau = load_forest(os.path.join(REPO, "forests", "defaultTauForest.txt"))
@@ -222,6 +289,7 @@ def phase_kernel_vs_twin():
              "zero17": make_filter_mask(zero, max_tests=17)}
     for i, m in enumerate(random_masks()):
         masks[f"random{i}_{m.num_tests}t"] = m
+    masks["random_tau400"] = wide_tau_mask()
     rng = np.random.default_rng(7)
     worst, cases, failures = 0, 0, []
     for h, w in KERNEL_SHAPES:
@@ -240,22 +308,24 @@ def phase_kernel_vs_twin():
                     cases += 1
                     if err or ncand == 0:
                         failures.append((h, w, name, pos_base, pb, err, ncand))
-    # the batched two-column launch equals per-image twins concatenated
-    settings = InferenceSettings(**SETTINGS_KW)
-    lefts = torch.from_numpy(np.stack(
-        [structured_image(rng, H, W) for _ in range(4)])).cuda()
-    rights = torch.from_numpy(np.stack(
-        [structured_image(rng, H, W) for _ in range(4)])).cuda()
-    for mask in masks.values():
-        got = _batched_key_images(lefts, rights, mask, settings)
-        want = torch.cat([fused_keys_plain(lefts, mask, 5, 0, SENTINEL_BASE),
-                          fused_keys_plain(rights, mask, 5, W, SENTINEL_BASE)],
-                         dim=2)
-        err = int((got.long() - want.long()).abs().max())
-        worst = max(worst, err)
-        cases += 1
-        if err:
-            failures.append(("batch4", H, W, err))
+    # the one-launch pair (both images of B pairs) equals two twins side by
+    # side, at B = 1 and 4 and odd widths
+    for h, w in PAIR_SHAPES:
+        for b in (1, 4):
+            lefts, rights = (torch.from_numpy(np.stack(
+                [structured_image(rng, h, w) for _ in range(b)])).cuda()
+                for _ in range(2))
+            for name, mask in masks.items():
+                got = fused_key_image(lefts, rights, mask, 5, SENTINEL_BASE)
+                want = torch.cat([
+                    fused_keys_plain(lefts, mask, 5, 0, SENTINEL_BASE),
+                    fused_keys_plain(rights, mask, 5, w, SENTINEL_BASE)],
+                    dim=2)
+                err = max_err(got, want)
+                worst = max(worst, err)
+                cases += 1
+                if err:
+                    failures.append(("pair", b, h, w, name, err))
     torch.cuda.synchronize()
     emit("kernel_vs_twin", cases=cases, max_abs_err=worst,
          failures=failures[:10])
@@ -336,10 +406,10 @@ def phase_main_path(oracle, launches):
                                            settings, device="cuda")
                                for l, r in pairs]
 
-    counts = launches.run(drive)[1]
+    # one key-kernel launch a module call: per scene two forests, the
+    # 17-test mask, the batch of 4 and its 4 pairs one by one
+    counts = launches.run("main_path", drive, {"fused_keys": 16})[1]
     failures, report = [], {}
-    if counts["fused_keys"] == 0:
-        failures.append("the main path launched no fused_keys kernel")
     for (scene, f), sup in single.items():
         left, right = scenes[scene]
         cpu = sparsematch(left, right, paths[f], settings, device="cpu")
@@ -443,11 +513,14 @@ def phase_times(smi):
                  d2h_ms=d2h, decode_ms_median=float(np.median(decode)),
                  one_call_ms_median=float(np.median(one_call)))
     emit("times", **times)
-    # device time of the kernel (both images) and of the twin, per pair;
-    # the events' times if the profiler saw no device activity
-    if prof_kernel["device_ms"] > 0 and prof_plain["device_ms"] > 0:
-        return prof_kernel["device_ms"], prof_plain["device_ms"]
-    return (k1 + k2) / 2, (p1 + p2) / 2
+    # device time of the kernel (both images, one launch) and of the twin,
+    # per pair; the events' times if the profiler saw no device activity
+    ncand = int((_key_image(l_d, r_d, mask, settings) < SENTINEL_BASE).sum())
+    return with_bound(
+        dict(ms=prof_kernel["device_ms"] or (k1 + k2) / 2,
+             plain_ms=prof_plain["device_ms"] or (p1 + p2) / 2,
+             library_ms=None),
+        2 * H * W * (1 + 4), code_ops(2, H, W, ncand, mask.num_tests))
 
 
 def kernel_masks(paths):
@@ -511,34 +584,57 @@ def phase_codes_vs_twin(masks):
     return finish_vs_twin("fused_codes", cases, worst, failures)
 
 
+def sort_inputs(rng, rows, n):
+    """The kinds of rows the sort is held to: random signed keys, all
+    equal, two-valued, already sorted and reverse-sorted."""
+    rand = rng.integers(-(1 << 31), 1 << 31, (rows, n),
+                        dtype=np.int64).astype(np.int32)
+    return {"random": rand,
+            "equal": np.full((rows, n), 5, np.int32),
+            "two-valued": rng.integers(0, 2, (rows, n)).astype(np.int32),
+            "sorted": np.sort(rand, axis=1),
+            "reversed": np.sort(rand, axis=1)[:, ::-1].copy()}
+
+
 def phase_sort_vs_twin(masks):
     """bitonic_sort_rows vs its twin on the card: keys and payloads bit
-    for bit, on signed keys with many duplicates at N from 256 to 16384
-    (odd row counts), and on the real 436x1024 key image (2W = 2048)."""
+    for bit, for every N from 256 to 16384 crossed with 1, 7 and 410 rows
+    of every kind of ``sort_inputs``, and on the real matcher rows of the
+    bitonic variant (key images padded with PAD_KEY_BASE lanes to N2) at
+    six frame shapes."""
     from opengpc_tpu_torch import InferenceSettings
     from opengpc_tpu_torch.infer import _key_image
-    from opengpc_tpu_torch.ops.sort import (bitonic_sort_rows,
-                                            bitonic_sort_rows_plain)
+    from opengpc_tpu_torch.match import PAD_KEY_BASE
+    from opengpc_tpu_torch.ops.sort import (MAX_N, MIN_N, bitonic_sort_rows,
+                                            bitonic_sort_rows_plain,
+                                            padded_row_length)
     from opengpc_tpu_torch.utils import make_pair
 
     rng = np.random.default_rng(9)
     inputs = []
-    for n, rows in ((256, 7), (1024, 33), (2048, 101), (8192, 17),
-                    (16384, 3)):
-        pool = rng.integers(-(1 << 31), 1 << 31, n // 4, dtype=np.int64)
-        key = pool.astype(np.int32)[rng.integers(0, n // 4, (rows, n))]
-        pay = rng.permutation(rows * n).reshape(rows, n).astype(np.int32)
-        inputs.append((f"random_{rows}x{n}", torch.from_numpy(key).cuda(),
-                       torch.from_numpy(pay).cuda()))
-    left, right = (torch.from_numpy(a).cuda()
-                   for a in make_pair(H, W, TRUE_DISP))
-    key = _key_image(left, right, masks["zero"],
-                     InferenceSettings(**SETTINGS_KW))
-    pos = torch.arange(2 * W, dtype=torch.int32, device="cuda")
-    inputs.append(("key_image_436x2048", key,
-                   pos.expand(H, -1).contiguous()))
+    n = MIN_N
+    while n <= MAX_N:
+        for rows in (1, 7, 410):
+            pay = rng.permutation(rows * n).reshape(rows, n).astype(np.int32)
+            for kind, key in sort_inputs(rng, rows, n).items():
+                inputs.append((f"{kind}_{rows}x{n}", torch.from_numpy(key),
+                               torch.from_numpy(pay)))
+        n *= 2
+    settings = InferenceSettings(**SETTINGS_KW)
+    for h, w in ((436, 1024), (436, 1000), (37, 130), (129, 1023),
+                 (540, 1920), (64, 5000)):
+        left, right = (torch.from_numpy(a).cuda()
+                       for a in make_pair(h, w, TRUE_DISP, seed=w))
+        key = _key_image(left, right, masks["zero"], settings)
+        n2 = padded_row_length(w)
+        pos = torch.arange(n2, dtype=torch.int32, device="cuda")
+        key = torch.cat([key, (PAD_KEY_BASE + pos[2 * w:]).expand(h, -1)],
+                        dim=1)
+        inputs.append((f"matcher_{h}x{w}_n{n2}", key,
+                       pos.expand(h, -1).contiguous()))
     worst, cases, failures = 0, 0, []
     for name, key, pay in inputs:
+        key, pay = key.cuda(), pay.cuda()
         got_k, got_p = bitonic_sort_rows(key, pay)
         want_k, want_p = bitonic_sort_rows_plain(key, pay)
         err = max(max_err(got_k, want_k), max_err(got_p, want_p),
@@ -591,26 +687,30 @@ def check_supports(oracle, left, right, forest_file, sup, cpu, settings,
 
 def route_cases():
     """The one-call routes at 436x1024: (name, settings, forest, expected
-    route, kernels that must launch, gate on the true disparity)."""
+    route, launches of the path, gate on the true disparity).  A path is
+    the dense and sparse pairs and a batch of 4, which these routes run
+    pair by pair: 6 pairs, each one key-kernel launch or two code-kernel
+    launches."""
     from opengpc_tpu_torch import InferenceSettings
 
     cap = H * W  # the default 32768 would truncate a dense scene
+    keys, codes = {"fused_keys": 6}, {"fused_codes": 12}
     return [
         ("global-rows/zero", InferenceSettings(), "defaultZeroForest",
-         "global-rows", ("fused_keys",), False),
+         "global-rows", keys, False),
         ("global-rows/tau", InferenceSettings(), "defaultTauForest",
-         "global-rows", ("fused_keys",), False),
+         "global-rows", keys, False),
         ("flat/epipolar/32-tests",
          InferenceSettings(capacity=cap, **SETTINGS_KW), "tests32", "flat",
-         ("fused_codes",), True),
+         codes, True),
         ("flat/global/32-tests", InferenceSettings(capacity=cap), "tests32",
-         "flat", ("fused_codes",), False),
+         "flat", codes, False),
         ("flat/global/disp_high-1024",
          InferenceSettings(disp_high=1024, capacity=cap),
-         "defaultZeroForest", "flat", ("fused_codes",), False),
+         "defaultZeroForest", "flat", codes, False),
         ("flat/epipolar/disp_high-2^20",
          InferenceSettings(disp_high=1 << 20, capacity=cap, **SETTINGS_KW),
-         "defaultZeroForest", "flat", ("fused_keys",), False),
+         "defaultZeroForest", "flat", keys, False),
     ]
 
 
@@ -629,7 +729,7 @@ def phase_routes(oracle, paths, launches):
     lefts = np.stack([p[0] for p in pairs])
     rights = np.stack([p[1] for p in pairs])
     failures, report, all_counts = [], {}, {}
-    for name, settings, forest, want_route, must, gate_d in route_cases():
+    for name, settings, forest, want_route, expect, gate_d in route_cases():
         mask = make_filter_mask(load_forest(paths[forest]))
         got_route = route(mask, (H, W), settings)
 
@@ -641,11 +741,10 @@ def phase_routes(oracle, paths, launches):
                                         settings, device="cuda")
             return out
 
-        out, counts = launches.run(drive)
+        out, counts = launches.run(name, drive, expect)
         all_counts[name] = counts
         if got_route != want_route:
             failures.append(f"{name}: route {got_route}, not {want_route}")
-        failures += [f"{name}: no {k} launch" for k in must if not counts[k]]
         for scene, (left, right) in scenes.items():
             cpu = sparsematch(left, right, paths[forest], settings,
                               device="cpu")
@@ -695,8 +794,9 @@ def phase_variants(oracle, paths, masks, launches):
         "fused_match": lambda l, r, m: _sparsematch_impl(
             l, r, m, settings, fused_match=True),
         "bitonic": bitonic}
-    must = {"fused_match": "fused_sparsematch_rows",
-            "bitonic": "bitonic_sort_rows"}
+    expect = {"default": {"fused_keys": 1},
+              "fused_match": {"fused_sparsematch_rows": 1},
+              "bitonic": {"fused_codes": 2, "bitonic_sort_rows": 1}}
     failures, report, all_counts = [], {}, {}
     for forest, mname in (("defaultZeroForest", "zero"),
                           ("defaultTauForest", "tau")):
@@ -704,9 +804,9 @@ def phase_variants(oracle, paths, masks, launches):
             l_d, r_d = (torch.from_numpy(a).cuda() for a in (left, right))
             sets = {}
             for vname, fn in variants.items():
-                out, counts = launches.run(lambda: supports_to_numpy(
-                    *fn(l_d, r_d, masks[mname])))
                 key = f"{vname}/{forest}/{scene}"
+                out, counts = launches.run(key, lambda: supports_to_numpy(
+                    *fn(l_d, r_d, masks[mname])), expect[vname])
                 all_counts[key] = counts
                 sets[vname] = set(map(tuple, out.tolist()))
                 ok, rep = check_supports(oracle, left, right, paths[forest],
@@ -714,8 +814,6 @@ def phase_variants(oracle, paths, masks, launches):
                 report[key] = rep
                 if not ok:
                     failures.append(f"{key}: {rep}")
-                if vname in must and not counts[must[vname]]:
-                    failures.append(f"{key}: no {must[vname]} launch")
                 if sets[vname] != sets["default"]:
                     failures.append(f"{key}: support set differs from the "
                                     "default flat path's")
@@ -734,33 +832,89 @@ def phase_descriptors(paths, masks, launches):
     settings = InferenceSettings(gradient_threshold=5)
     failures, report = [], {}
     for name in ("tests32", "zero"):
-        got, counts = launches.run(lambda: extract_descriptors(
-            left, masks[name], settings, device="cuda"))
+        got, counts = launches.run(
+            f"descriptors/{name}", lambda: extract_descriptors(
+                left, masks[name], settings, device="cuda"),
+            {"fused_codes": 1})
         want = extract_descriptors(left, masks[name], settings, device="cpu")
         same = bool(np.array_equal(got, want))
         report[name] = dict(descriptors=len(got), equals_cpu=same,
                             launches=counts)
-        if not same or not len(got) or not counts["fused_codes"]:
+        if not same or not len(got):
             failures.append(f"{name}: {report[name]}")
     emit("descriptors", checks=report, failures=failures)
     if failures:
         raise SystemExit(f"descriptors failed: {failures}")
 
 
-def kernel_vs_plain_times(kernel, plain, k_iters, p_iters):
+def kernel_vs_plain_times(kernel, plain, k_iters, p_iters, library=None):
     """Events ms per call in turns (plain, kernel, kernel, plain) and the
-    profiler's device ms per call of each, on one card."""
+    profiler's device ms per call of each, on one card; with ``library``
+    (one PyTorch call computing the same function) its events and device
+    ms too, in turns with the kernel (library, kernel, kernel, library)."""
     p1 = cuda_ms(plain, p_iters)
     k1 = cuda_ms(kernel, k_iters)
     k2 = cuda_ms(kernel, k_iters)
     p2 = cuda_ms(plain, p_iters)
+    out = {}
+    if library is not None:
+        l1 = device_profile(library, max(5, k_iters // 10))
+        kl = [device_profile(kernel, max(5, k_iters // 10))
+              for _ in range(2)]
+        l2 = device_profile(library, max(5, k_iters // 10))
+        out = dict(library_events_ms=[cuda_ms(library, k_iters)
+                                      for _ in range(2)],
+                   library_device_ms=[l1["device_ms"], l2["device_ms"]],
+                   library_kernels=l1["kernels"][:4],
+                   turns_device_ms=[kl[0]["device_ms"], kl[1]["device_ms"]],
+                   library_ms=(l1["device_ms"] + l2["device_ms"]) / 2)
     pk = device_profile(kernel, max(5, k_iters // 10))
     pp = device_profile(plain, max(3, p_iters // 5))
-    return dict(events_ms=[k1, k2], plain_events_ms=[p1, p2],
+    return dict(out, events_ms=[k1, k2], plain_events_ms=[p1, p2],
                 device_ms=pk["device_ms"], plain_device_ms=pp["device_ms"],
                 kernels=pk["kernels"][:4], plain_kernels=pp["kernels"][:4],
                 ms=pk["device_ms"] or (k1 + k2) / 2,
                 plain_ms=pp["device_ms"] or (p1 + p2) / 2)
+
+
+def with_bound(times, nbytes, ops):
+    """``times`` with the bound of its work beside it."""
+    ms, by = bound(nbytes, ops)
+    return dict(times, bound_ms=ms, bound_by=by, bytes=nbytes, ops=ops)
+
+
+def phase_key_times(smi, masks):
+    """Device time of the one-launch key kernel (both images of B pairs)
+    with its bound: the dense and sparse 436x1024 pairs at B = 1 and 4,
+    and a dense 2160x3840 pair, zero forest."""
+    from opengpc_tpu_torch.match import SENTINEL_BASE
+    from opengpc_tpu_torch.ops.fused import fused_key_image
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    zero = masks["zero"]
+    cases = {}
+    for name, (h, w), make in (
+            ("dense", (H, W), lambda s: make_pair(H, W, TRUE_DISP, seed=s)),
+            ("sparse", (H, W), lambda s: make_sparse_pair(
+                H, W, TRUE_DISP, density=0.15, seed=s)),
+            ("dense-2160x3840", (2160, 3840),
+             lambda s: make_pair(2160, 3840, TRUE_DISP, seed=s))):
+        for b in ((1, 4) if h == H else (1,)):
+            pairs = [make(400 + i) for i in range(b)]
+            lefts, rights = (torch.from_numpy(np.stack([p[i] for p in pairs]))
+                             .cuda() for i in (0, 1))
+            keys = fused_key_image(lefts, rights, zero, 5, SENTINEL_BASE)
+            ncand = int((keys < SENTINEL_BASE).sum())
+            prof = [device_profile(lambda: fused_key_image(
+                lefts, rights, zero, 5, SENTINEL_BASE), 50) for _ in range(2)]
+            ms, by = bound(2 * b * h * w * (1 + 4),
+                           code_ops(2 * b, h, w, ncand, zero.num_tests))
+            cases[f"{name}/B{b}"] = dict(
+                device_us=[p["device_ms"] * 1e3 for p in prof],
+                bound_us=ms * 1e3, bound_by=by,
+                candidate_share=ncand / (2 * b * h * w),
+                launches_per_call=prof[0]["kernels"][0][2])
+    emit("key_kernel_times", card=smi, forest="defaultZeroForest", **cases)
 
 
 def phase_new_times(smi, masks):
@@ -776,8 +930,10 @@ def phase_new_times(smi, masks):
     from opengpc_tpu_torch.ops.fused import fused_codes, fused_codes_plain
     from opengpc_tpu_torch.ops.fused_match import (
         fused_sparsematch_rows, fused_sparsematch_rows_plain)
+    from opengpc_tpu_torch.match import SENTINEL_BASE
     from opengpc_tpu_torch.ops.sort import (bitonic_sort_rows,
-                                            bitonic_sort_rows_plain)
+                                            bitonic_sort_rows_plain,
+                                            padded_row_length)
     from opengpc_tpu_torch.utils import make_pair
 
     left, right = make_pair(H, W, TRUE_DISP)
@@ -785,24 +941,31 @@ def phase_new_times(smi, masks):
     zero, t32 = masks["zero"], masks["tests32"]
     epi = InferenceSettings(capacity=H * W, **SETTINGS_KW)
     times = {}
-    times["fused_codes"] = kernel_vs_plain_times(
+    times["fused_codes"] = with_bound(kernel_vs_plain_times(
         lambda: (fused_codes(l_d, t32, 5), fused_codes(r_d, t32, 5)),
         lambda: (fused_codes_plain(l_d, t32, 5),
-                 fused_codes_plain(r_d, t32, 5)), 200, 20)
-    key = _interior_rows(_key_image(l_d, r_d, zero, epi))[0].contiguous()
-    pos = torch.arange(2 * W, dtype=torch.int32,
-                       device="cuda").expand(key.shape[0], -1).contiguous()
-    times["bitonic_sort_rows"] = kernel_vs_plain_times(
+                 fused_codes_plain(r_d, t32, 5)), 200, 20),
+        2 * H * W * (1 + 4 + 1),
+        code_ops(2, H, W, 2 * H * W, t32.num_tests))
+    full_key = _key_image(l_d, r_d, zero, epi)
+    key = _interior_rows(full_key)[0].contiguous()
+    rows, n = key.shape
+    pos = torch.arange(n, dtype=torch.int32,
+                       device="cuda").expand(rows, -1).contiguous()
+    times["bitonic_sort_rows"] = with_bound(kernel_vs_plain_times(
         lambda: bitonic_sort_rows(key, pos),
-        lambda: bitonic_sort_rows_plain(key, pos), 200, 20)
-    times["bitonic_sort_rows"]["torch_sort_ms"] = [
-        cuda_ms(lambda: torch.sort(key, dim=1, stable=False), 200)
-        for _ in range(2)]
-    times["bitonic_sort_rows"]["rows"] = list(key.shape)
-    times["fused_sparsematch_rows"] = kernel_vs_plain_times(
+        lambda: bitonic_sort_rows_plain(key, pos), 200, 20,
+        library=lambda: torch.sort(key, dim=1, stable=False)),
+        16 * rows * n, network_ops(rows, n))
+    times["bitonic_sort_rows"]["rows"] = [rows, n]
+    n2 = padded_row_length(W)
+    ncand = int((full_key < SENTINEL_BASE).sum())
+    times["fused_sparsematch_rows"] = with_bound(kernel_vs_plain_times(
         lambda: fused_sparsematch_rows(l_d, r_d, zero, 5, 128),
         lambda: fused_sparsematch_rows_plain(l_d, r_d, zero, 5, 128), 200,
-        20)
+        20), 2 * H * W + 9 * H * n2,
+        code_ops(2, H, W, ncand, zero.num_tests) + network_ops(H, n2)
+        + 10 * H * n2)
     emit("kernel_times", card=smi, shape=[H, W], **times)
 
     pairs = [make_pair(H, W, TRUE_DISP, seed=300 + b) for b in range(4)]
@@ -841,7 +1004,8 @@ def phase_new_times(smi, masks):
         profiles[name] = device_profile(lambda: fn(l_d, r_d), 20)
     emit("route_profile", card=smi, **profiles)
     emit("route_times", card=smi, shape=[H, W], **route_times)
-    return {name: (t["ms"], t["plain_ms"]) for name, t in times.items()}
+    return {name: dict(t, library_ms=t.get("library_ms"))
+            for name, t in times.items()}
 
 
 def phase_slab_vs_twin(masks):
@@ -990,8 +1154,6 @@ def phase_sharded_frame(oracle, paths, launches):
             device="cuda")(*(torch.from_numpy(a).cuda() for a in pair))
         all_counts[key] = counts
         rep = {}
-        if not counts["fused_keys_slab"]:
-            failures.append(f"{key}: no fused_keys_slab launch")
         if want_flag is not None:
             rep["overflow"] = bool(out[-1])
             if bool(out[-1]) != want_flag or bool(single[-1]) != want_flag:
@@ -1030,12 +1192,14 @@ def phase_sharded_frame(oracle, paths, launches):
                             device="cuda")
                         l_d, r_d = (torch.from_numpy(a).cuda()
                                     for a in scenes[scene])
+                        key = f"n{n}/{forest}/{contract}/{scene}"
+                        # one slab-key launch an image a shard
                         out, counts = launches.run(
-                            lambda: mod(l_d, r_d) if n == 1
-                            else _run_in_one_process(mod, l_d, r_d, n))
-                        check(f"n{n}/{forest}/{contract}/{scene}", contract,
-                              settings, forest, scenes[scene], out, counts,
-                              flag)
+                            key, lambda: mod(l_d, r_d) if n == 1
+                            else _run_in_one_process(mod, l_d, r_d, n),
+                            {"fused_keys_slab": 2 * n})
+                        check(key, contract, settings, forest, scenes[scene],
+                              out, counts, flag)
         finally:
             dist.destroy_process_group()
     from opengpc_tpu_torch import InferenceSettings
@@ -1045,10 +1209,12 @@ def phase_sharded_frame(oracle, paths, launches):
     mod = build_sharded_frame_sparsematch(mask, settings, device="cuda")
     for scene, pair in big.items():
         l_d, r_d = (torch.from_numpy(a).cuda() for a in pair)
+        key = f"n4/defaultZeroForest/masked/{scene}"
         out, counts = launches.run(
-            lambda: _run_in_one_process(mod, l_d, r_d, 4))
-        check(f"n4/defaultZeroForest/masked/{scene}", "masked", settings,
-              "defaultZeroForest", pair, out, counts, None)
+            key, lambda: _run_in_one_process(mod, l_d, r_d, 4),
+            {"fused_keys_slab": 8})
+        check(key, "masked", settings, "defaultZeroForest", pair, out,
+              counts, None)
     emit("sharded_frame", cases=len(report), launches=all_counts,
          checks=report, failures=failures)
     if failures:
@@ -1063,10 +1229,11 @@ def phase_census(launches):
 
     img = torch.from_numpy(structured_image(np.random.default_rng(12), H,
                                             W)).cuda()
-    out, counts = launches.run(lambda: fused_census(img))
+    out, counts = launches.run("census", lambda: fused_census(img),
+                               {"fused_census": 1})
     same = bool(torch.equal(out, census5x5(img)))
     emit("census", launches=counts, equals_twin=same, shape=[H, W])
-    if counts["fused_census"] != 1 or not same:
+    if not same:
         raise SystemExit(f"census call failed: {counts}, equal {same}")
 
 
@@ -1092,14 +1259,20 @@ def phase_slab_times(smi, masks):
                    for a in make_pair(H, W, TRUE_DISP))
     sl, sr = (F.pad(t, (0, 0, PAD, PAD)) for t in (left, right))
     times = {}
-    times["fused_keys_slab"] = kernel_vs_plain_times(
+    ncand = int((_key_image_slab(sl, sr, zero, settings, 0, H)
+                 < SENTINEL_BASE).sum())
+    times["fused_keys_slab"] = with_bound(kernel_vs_plain_times(
         lambda: _key_image_slab(sl, sr, zero, settings, 0, H),
         lambda: torch.cat([
             fused_keys_slab_plain(sl, zero, 5, 0, SENTINEL_BASE, 0, H),
             fused_keys_slab_plain(sr, zero, 5, W, SENTINEL_BASE, 0, H)],
-            dim=1), 200, 20)
-    times["fused_census"] = kernel_vs_plain_times(
-        lambda: fused_census(left), lambda: census5x5(left), 200, 20)
+            dim=1), 200, 20),
+        2 * (H + 2 * PAD) * W + 2 * 4 * H * W,
+        code_ops(2, H, W, ncand, zero.num_tests))
+    # 24 compares and 24 shift-ins a pixel
+    times["fused_census"] = with_bound(kernel_vs_plain_times(
+        lambda: fused_census(left), lambda: census5x5(left), 200, 20),
+        H * W * (1 + 4), 48 * H * W)
     emit("slab_census_times", card=smi, shape=[H, W], **times)
     sharded = build_sharded_frame_sparsematch(zero, settings, device="cuda")
     single = build_sparsematch_masked(zero, settings, device="cuda")
@@ -1114,7 +1287,7 @@ def phase_slab_times(smi, masks):
         for k in ("single_device_masked", "sharded_n1_masked",
                   "sharded_n1_masked", "single_device_masked")]
     emit("sharded_times", card=smi, shape=[H, W], **module_times)
-    return {name: (t["ms"], t["plain_ms"]) for name, t in times.items()}
+    return {name: dict(t, library_ms=None) for name, t in times.items()}
 
 
 def main():
@@ -1144,6 +1317,7 @@ def main():
         phase_sharded_frame(oracle, paths, launches)
         phase_census(launches)
         times = {"fused_keys": phase_times(smi)}
+        phase_key_times(smi, masks)
         times.update(phase_new_times(smi, masks))
         times.update(phase_slab_times(smi, masks))
     missing = [k for k, n in launches.total.items() if n == 0]
@@ -1153,8 +1327,12 @@ def main():
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": KERNELS[name][1],
         "replaces": KERNELS[name][2], "launches": launches.total[name],
-        "max_abs_err": errs[name], "ms": times[name][0],
-        "plain_ms": times[name][1]} for name in KERNELS]}), flush=True)
+        "max_abs_err": errs[name], "ms": times[name]["ms"],
+        "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"],
+        "bound_by": times[name]["bound_by"],
+        "library_ms": times[name]["library_ms"]} for name in KERNELS]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,27 +11,33 @@
 //   key     = cand ? code : sentinel_base + pos_base + x
 //             (cand ? (code << pack_bits) | (pos_base + x) when pack_bits > 0)
 //
-// Design.  One block computes a 32x64 output tile.  It stages the tile's
-// (32+28) x (64+28) uint8 window in shared memory (zeros outside the image),
-// box-blurs the (32+26) x (64+26) code-support region into a second shared
-// array, zeroing by global coordinates (tile_codes.cuh's CodeTile, shared
-// with the other code kernels), and after a barrier each thread evaluates
-// the tests and the Sobel for its pixels from shared memory.  The
-// blurred image never reaches device memory.  Tests arrive by value in the
-// kernel's parameter space (no device allocation, no per-call copy); every
-// thread reads the same test at once, which the constant bank broadcasts.
-// Ragged tiles are masked, so any H and W work.  The kernel allocates
-// nothing and runs on the caller's stream.
+// One launch writes both images of a batch of pairs: grid z runs over
+// (pair, side), side s reading image s of the pair and writing columns
+// [col[s], col[s] + W) of the (B, H, Wout) key image with positions from
+// pos[s]; a single image is the same launch with one side.
 //
-// Bound on the H100.  Device memory traffic is about 1 byte read and 4
-// written per pixel (5 MB for a 436x1024 pair: ~1.5 us at 3.35 TB/s).  The
-// work per pixel is 2T shared-memory loads for the tests plus ~9 for the box
-// and 8 for the Sobel, so at T = 30 the kernel is bound by shared-memory load
-// issue and integer instructions, not by device memory.  The design keeps
-// every reused byte in shared memory (each input byte is read ~60 times)
-// and keeps warps reading consecutive bytes, so the loads are
-// conflict-free.  Making it faster (register tiling of the test loop,
-// wider loads, one launch for both images) is later work.
+// Bound on the H100.  Device memory sees 1 byte read and 4 written a pixel:
+// 4.5 MB for a 436x1024 pair, 1.3 us at 3.35 TB/s.  The math, counted in
+// StripTile's two-lane form (chip_smoke.py's code_ops), is ~29 integer
+// operations a pixel for the box, the Sobel and the key, and for a
+// candidate 1.5 a test and 7 to assemble its code: ~61 M for the dense
+// pair at 30 tests, 3.7 us at the card's INT32 instruction rate.  So
+// integer instructions bound it, and what the design does is cut
+// operations a pixel.
+//
+// Design (tile_codes.cuh's StripTile).  One block of 256 threads makes a
+// 32x64 output tile: it stages the (60, 96) raw window with 16-byte loads,
+// blurs the (58, 92) code-support region separably (a horizontal 3-sum of
+// two 16-bit lanes a word, rolled into vertical 3-sums) into two lane-shifted
+// copies, and after one barrier each thread makes two strips of 4 pixels
+// (rows ty and ty + 16).  A strip's Sobel runs first; only a strip with a
+// candidate evaluates its tests, each as two aligned word loads a tap and
+// one add a word of two pixels (exact for every tau, see StripTile).  Keys
+// leave as one 16-byte store where the key image's row allows, else
+// scalar stores.  At 436x1024 a pair is 448 blocks, one wave, and takes
+// 12.5 us on an H100, ~3.4x its bound (chip_smoke.py, PERF.md).  ptxas:
+// 32 registers, 27,568 bytes of shared memory, no spills.  The kernel
+// allocates nothing and runs on the caller's stream.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,71 +46,117 @@
 
 namespace {
 
-using ogpc::CodeTile;
-using ogpc::Tests;
+using ogpc::StripTests;
+using Tile = ogpc::StripTile<32, 64>;
 
 constexpr int kTileH = 32;
 constexpr int kTileW = 64;
-constexpr int kThreadsY = 8;  // block = (kTileW, kThreadsY)
+constexpr int kStrips = kTileW / 4;        // strips a tile row
+constexpr int kThreads = kStrips * 16;     // two tile rows a thread
+constexpr int kMaxSides = 2;
 
-__global__ void __launch_bounds__(kTileW * kThreadsY)
-fused_keys_kernel(const uint8_t* __restrict__ img, int32_t* __restrict__ out,
-                  int h, int w, int out_row_stride, int out_batch_stride,
-                  int col_offset, const __grid_constant__ Tests tests,
-                  int thr2, int pos_base,
-                  int sentinel_base, int pack_bits) {
-  __shared__ CodeTile<kTileH, kTileW> tile;
+struct Sides {
+  const uint8_t* img[kMaxSides];
+  int col[kMaxSides];
+  int pos[kMaxSides];
+  bool vec_out[kMaxSides];  // 16-byte stores land aligned
+};
 
-  const int b = blockIdx.z;
+__global__ void __launch_bounds__(kThreads)
+fused_keys_kernel(const __grid_constant__ Sides sides, int nsides,
+                  int32_t* __restrict__ out, int h, int w,
+                  int out_row_stride, long long out_batch_stride,
+                  bool vec_in, const __grid_constant__ StripTests tests,
+                  int thr2, int sentinel_base, int pack_bits) {
+  __shared__ Tile tile;
+
+  const int s = blockIdx.z % nsides;
+  const int b = blockIdx.z / nsides;
   const int y0 = blockIdx.y * kTileH;
   const int x0 = blockIdx.x * kTileW;
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-  tile.stage(img + static_cast<size_t>(b) * h * w, 0, h, h, w, y0, x0, tid,
-             kTileW * kThreadsY);
+  tile.stage(sides.img[s] + static_cast<size_t>(b) * h * w, h, w, y0, x0,
+             vec_in, threadIdx.x, kThreads);
 
-  const int tx = threadIdx.x;
-  const int x = x0 + tx;
+  const int sx = threadIdx.x % kStrips;
+  const int x = x0 + 4 * sx;
   if (x >= w) return;
-  int32_t* dst = out + static_cast<size_t>(b) * out_batch_stride + col_offset;
-  for (int ty = threadIdx.y; ty < kTileH; ty += kThreadsY) {
+  int32_t* dst_b = out + b * out_batch_stride + sides.col[s] + x;
+  const int pos = sides.pos[s] + x;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int ty = threadIdx.x / kStrips + 16 * half;
     const int y = y0 + ty;
     if (y >= h) break;
-    const uint32_t code = tile.code(ty, tx, tests);
-    const int pos = pos_base + x;
-    int32_t key;
-    if (!tile.cand(ty, tx, y, x, h, w, thr2))
-      key = sentinel_base + pos;
-    else if (pack_bits)
-      key = static_cast<int32_t>((code << pack_bits) |
-                                 static_cast<uint32_t>(pos));
-    else
-      key = static_cast<int32_t>(code);
-    dst[static_cast<size_t>(y) * out_row_stride + x] = key;
+    const unsigned cand = tile.cands(ty, sx, y, x, h, w, thr2);
+    uint32_t code[4] = {0, 0, 0, 0};
+    if (cand) tile.codes(tile.base(ty, sx), tests, code);
+    int32_t key[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      if (!(cand >> p & 1))
+        key[p] = sentinel_base + pos + p;
+      else if (pack_bits)
+        key[p] = static_cast<int32_t>((code[p] << pack_bits) |
+                                      static_cast<uint32_t>(pos + p));
+      else
+        key[p] = static_cast<int32_t>(code[p]);
+    }
+    int32_t* dst = dst_b + static_cast<size_t>(y) * out_row_stride;
+    if (sides.vec_out[s] && x + 4 <= w) {
+      *reinterpret_cast<int4*>(dst) = make_int4(key[0], key[1], key[2],
+                                                key[3]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        if (x + p < w) dst[p] = key[p];
+    }
   }
+}
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace
 
-// Keys of a (batch, h, w) uint8 image stack into columns
-// [col_offset, col_offset + w) of an int32 output with the given row and
-// batch strides.  tests: host array of n_tests * (iy, ix, jy, jx, tau).
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int ogpc_fused_keys(const void* img, void* out, int batch, int h,
-                               int w, int out_row_stride, int out_batch_stride,
-                               int col_offset, const void* tests, int n_tests,
-                               int thr2, int pos_base, int sentinel_base,
+// Keys of a batch of (batch, h, w) uint8 images, one or two sides: side s
+// (img1 == nullptr for one side) into columns [col_s, col_s + w) of the
+// int32 output with the given row and batch strides, positions pos_s + x.
+// tests: host array of n_tests * (iy, ix, jy, jx, tau).  Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int ogpc_fused_keys(const void* img0, const void* img1, void* out,
+                               int batch, int h, int w, int out_row_stride,
+                               int out_batch_stride, int col0, int col1,
+                               int pos0, int pos1, const void* tests,
+                               int n_tests, int thr2, int sentinel_base,
                                int pack_bits, void* stream) {
-  Tests t;
-  if (!ogpc::load_tests(tests, n_tests, &t) || batch < 0 || h < 0 || w < 0 ||
-      pack_bits < 0 || pack_bits > 30 || batch > 65535)
+  ogpc::Tests t;
+  const int nsides = img1 ? 2 : 1;
+  if (!ogpc::load_tests(tests, n_tests, &t) || !img0 || batch < 0 ||
+      h < 0 || w < 0 || pack_bits < 0 || pack_bits > 30 ||
+      batch * nsides > 65535 || col0 < 0 || col0 + w > out_row_stride ||
+      (img1 && (col1 < 0 || col1 + w > out_row_stride)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || h == 0 || w == 0) return 0;
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH, batch);
-  const dim3 block(kTileW, kThreadsY);
-  fused_keys_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(img), static_cast<int32_t*>(out), h, w,
-      out_row_stride, out_batch_stride, col_offset, t, thr2, pos_base,
-      sentinel_base, pack_bits);
+  Sides sd{};
+  const void* imgs[kMaxSides] = {img0, img1};
+  const int cols[kMaxSides] = {col0, col1};
+  const int poss[kMaxSides] = {pos0, pos1};
+  bool vec_in = w % 16 == 0;
+  for (int s = 0; s < nsides; ++s) {
+    sd.img[s] = static_cast<const uint8_t*>(imgs[s]);
+    sd.col[s] = cols[s];
+    sd.pos[s] = poss[s];
+    sd.vec_out[s] = aligned16(out) && out_row_stride % 4 == 0 &&
+                    out_batch_stride % 4 == 0 && cols[s] % 4 == 0;
+    vec_in = vec_in && aligned16(imgs[s]);
+  }
+  const StripTests st = Tile::strip_tests(t);
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH,
+                  batch * nsides);
+  fused_keys_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sd, nsides, static_cast<int32_t*>(out), h, w, out_row_stride,
+      out_batch_stride, vec_in, st, thr2, sentinel_base, pack_bits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,8 +54,8 @@ from opengpc_tpu_torch.match import (MASKED_SENTINEL, SENTINEL_BASE, _bits,
                                      match_global_rows_compact,
                                      resolve_masked_compact_chunks)
 from opengpc_tpu_torch.ops.fused import (_slab_rows, fused_codes,
-                                         fused_keys_into, fused_keys_slab_into,
-                                         mask_tests)
+                                         fused_key_image,
+                                         fused_keys_slab_into, mask_tests)
 from opengpc_tpu_torch.ops.fused_match import fused_sparsematch_rows
 from opengpc_tpu_torch.ops.preprocess import CANDIDATE_MARGIN, require_u8
 
@@ -117,14 +117,10 @@ def _pad_rows(t, m, dim, value=0):
 def _batched_key_images(lefts, rights, mask: FilterMask,
                         settings: InferenceSettings):
     """(B, H, 2W) sentinel-packed key images of a (B, H, W) batch of pairs:
-    the left keys in columns [0, W), the right keys in [W, 2W).  The key
-    kernel on CUDA tensors, its plain twin on CPU tensors."""
-    b, h, w = lefts.shape
-    out = torch.empty((b, h, 2 * w), dtype=torch.int32, device=lefts.device)
-    thr = settings.gradient_threshold
-    fused_keys_into(lefts, out, 0, mask, thr, 0, SENTINEL_BASE)
-    fused_keys_into(rights, out, w, mask, thr, w, SENTINEL_BASE)
-    return out
+    the left keys in columns [0, W), the right keys in [W, 2W).  One launch
+    of the key kernel on CUDA tensors, its plain twin on CPU tensors."""
+    return fused_key_image(lefts, rights, mask, settings.gradient_threshold,
+                           SENTINEL_BASE)
 
 
 def _key_image(left, right, mask: FilterMask, settings: InferenceSettings):
@@ -316,7 +312,7 @@ class _Matcher(nn.Module):
     leading batch axis for a batch."""
 
     def __init__(self, mask: FilterMask, settings: InferenceSettings,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.mask = mask
         self.settings = settings
@@ -406,7 +402,7 @@ class SparsematchGlobalCompact(_Matcher):
 
 
 def build_sparsematch_masked(forest_or_mask, settings: InferenceSettings,
-                             device="cpu") -> SparsematchMasked:
+                             device="cuda") -> SparsematchMasked:
     """The masked epipolar matcher as an ``nn.Module`` on ``device``.
 
     ``buf`` is (H, 2W) int32 with ``(x << bd) | (d + disp_high)`` at
@@ -417,7 +413,7 @@ def build_sparsematch_masked(forest_or_mask, settings: InferenceSettings,
 
 
 def build_sparsematch(forest_or_mask, settings: InferenceSettings,
-                      device="cpu") -> Sparsematch:
+                      device="cuda") -> Sparsematch:
     """The flat matcher as an ``nn.Module`` on ``device``: (xs, ys, ds)
     (capacity,) int32 buffers and the true support count, which may exceed
     ``settings.capacity`` (the buffers then hold the first ``capacity``).
@@ -427,7 +423,7 @@ def build_sparsematch(forest_or_mask, settings: InferenceSettings,
 
 
 def build_sparsematch_global_rows(forest_or_mask, settings: InferenceSettings,
-                                  device="cpu") -> SparsematchGlobalRows:
+                                  device="cuda") -> SparsematchGlobalRows:
     """The global-mode matcher with segmented row-form output as an
     ``nn.Module`` on ``device``: the same support set as the flat matcher
     in global mode, without its compaction sort.  Needs <= 30 tests and a
@@ -437,7 +433,7 @@ def build_sparsematch_global_rows(forest_or_mask, settings: InferenceSettings,
 
 
 def build_sparsematch_rows(forest_or_mask, settings: InferenceSettings,
-                           device="cpu") -> SparsematchRows:
+                           device="cuda") -> SparsematchRows:
     """The row-form epipolar matcher as an ``nn.Module`` on ``device``:
     ((xs, ds) (H, W) each, row_counts (H,)), row y holding the supports
     (xs[y, :c], y, ds[y, :c]), c = row_counts[y], ordered by x.  The same
@@ -449,7 +445,7 @@ def build_sparsematch_rows(forest_or_mask, settings: InferenceSettings,
 
 def build_sparsematch_masked_compact(forest_or_mask,
                                      settings: InferenceSettings,
-                                     device="cpu", chunk=None,
+                                     device="cuda", chunk=None,
                                      k=None) -> SparsematchMaskedCompact:
     """The low-density masked matcher as an ``nn.Module`` on ``device``:
     (buf (H, 2W/chunk*k), row_counts (H,), overflow bool).  The same
@@ -463,7 +459,7 @@ def build_sparsematch_masked_compact(forest_or_mask,
 
 def build_sparsematch_global_compact(forest_or_mask,
                                      settings: InferenceSettings,
-                                     device="cpu", chunk=None,
+                                     device="cuda", chunk=None,
                                      k=None) -> SparsematchGlobalCompact:
     """The low-density global matcher as an ``nn.Module`` on ``device``:
     ((xs, ys, ds) (R, C) each, counts (R,), overflow bool).  The same

@@ -1,6 +1,7 @@
 """The fused code kernels: box blur, leaf codes and Sobel candidates in one
 pass, emitting the matcher's sentinel-packed sort keys of a whole image
-(``fused_keys``) or of a row slab of a larger image (``fused_keys_slab``,
+(``fused_keys``), of both images of a batch of pairs in one launch
+(``fused_key_image``) or of a row slab of a larger image (``fused_keys_slab``,
 the sharded frame's kernel), or the codes and candidates as two images
 (``fused_codes``); and the 5x5 census (``fused_census``).
 
@@ -160,36 +161,53 @@ def _check_args(mask: FilterMask, pack_bits: int) -> None:
         raise ValueError(f"pack_bits must be in 0..30, got {pack_bits}")
 
 
-def _launch(img: torch.Tensor, out: torch.Tensor, col_offset: int,
-            mask: FilterMask, gradient_threshold: int, pos_base: int,
-            sentinel_base: int, pack_bits: int) -> None:
-    """Launch the CUDA kernel: keys of the (B, H, W) batch ``img`` into
-    columns [col_offset, col_offset + W) of the (B, H, Wout) int32 ``out``,
-    on the current stream, without synchronizing."""
+def _launch(sides, out: torch.Tensor, mask: FilterMask,
+            gradient_threshold: int, sentinel_base: int,
+            pack_bits: int) -> None:
+    """One launch of the key kernel for one or two ``sides``, each a
+    (B, H, W) CUDA batch, its first column in the (B, H, Wout) int32
+    ``out`` and its position base; on the current stream, without
+    synchronizing."""
     from opengpc_tpu_torch.ops._build import check_launch, load_library
 
-    if not img.is_cuda:
-        raise ValueError(f"fused_keys: no kernel for {img.device} tensors")
-    if not (img.is_contiguous() and out.is_contiguous()):
-        raise ValueError("fused_keys: image and output must be contiguous")
+    imgs = [img for img, _, _ in sides]
+    if not all(img.is_cuda for img in imgs):
+        raise ValueError(f"fused_keys: no kernel for {imgs[0].device} "
+                         "tensors")
+    if not (all(img.is_contiguous() for img in imgs) and out.is_contiguous()):
+        raise ValueError("fused_keys: images and output must be contiguous")
     if out.dtype != torch.int32 or out.dim() != 3:
         raise ValueError("fused_keys: output must be a (B, H, Wout) int32 "
                          "tensor")
-    b, h, w = img.shape
-    if out.shape[0] != b or out.shape[1] != h or col_offset + w > out.shape[2]:
-        raise ValueError(f"fused_keys: output {tuple(out.shape)} cannot "
-                         f"hold {tuple(img.shape)} at column {col_offset}")
+    b, h, w = imgs[0].shape
+    for img, col, _ in sides:
+        if (img.shape != imgs[0].shape or out.shape[:2] != (b, h)
+                or col + w > out.shape[2]):
+            raise ValueError(f"fused_keys: output {tuple(out.shape)} cannot "
+                             f"hold {tuple(img.shape)} at column {col}")
+    img0, col0, pos0 = sides[0]
+    img1, col1, pos1 = sides[1] if len(sides) > 1 else (None, 0, 0)
     tests = _tests_array(mask)
     lib = load_library()
-    with torch.cuda.device(img.device):
+    with torch.cuda.device(img0.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ogpc_fused_keys(
-            img.data_ptr(), out.data_ptr(), b, h, w, out.shape[2],
-            out.shape[1] * out.shape[2], col_offset, tests.ctypes.data,
-            tests.shape[0], int(gradient_threshold) ** 2, int(pos_base),
-            int(sentinel_base), int(pack_bits), stream)
+            img0.data_ptr(), img1.data_ptr() if img1 is not None else None,
+            out.data_ptr(), b, h, w, out.shape[2], out.shape[1] * out.shape[2],
+            col0, col1, int(pos0), int(pos1), tests.ctypes.data,
+            tests.shape[0], int(gradient_threshold) ** 2, int(sentinel_base),
+            int(pack_bits), stream)
     check_launch("fused_keys", rc)
     fused_keys.launches += 1
+
+
+def _check_batch(img: torch.Tensor, out: torch.Tensor) -> None:
+    require_u8(img)
+    if img.dim() != 3:
+        raise ValueError(f"expected a (B, H, W) batch, got {tuple(img.shape)}")
+    if out.device != img.device:
+        raise ValueError(f"fused_keys: image on {img.device}, output on "
+                         f"{out.device}")
 
 
 def fused_keys_into(img: torch.Tensor, out: torch.Tensor, col_offset: int,
@@ -198,20 +216,44 @@ def fused_keys_into(img: torch.Tensor, out: torch.Tensor, col_offset: int,
     """Write the keys of a (B, H, W) uint8 batch into columns
     [col_offset, col_offset + W) of the (B, H, Wout) int32 ``out``: the
     kernel for a CUDA tensor, the plain twin for a CPU one."""
-    require_u8(img)
+    _check_batch(img, out)
     _check_args(mask, pack_bits)
-    if img.dim() != 3:
-        raise ValueError(f"expected a (B, H, W) batch, got {tuple(img.shape)}")
-    if out.device != img.device:
-        raise ValueError(f"fused_keys: image on {img.device}, output on "
-                         f"{out.device}")
     if img.device.type == "cpu":
         w = img.shape[-1]
         out[..., col_offset:col_offset + w] = fused_keys_plain(
             img, mask, gradient_threshold, pos_base, sentinel_base, pack_bits)
         return
-    _launch(img.contiguous(), out, col_offset, mask, gradient_threshold,
-            pos_base, sentinel_base, pack_bits)
+    _launch([(img.contiguous(), col_offset, pos_base)], out, mask,
+            gradient_threshold, sentinel_base, pack_bits)
+
+
+def fused_key_image(lefts: torch.Tensor, rights: torch.Tensor,
+                    mask: FilterMask, gradient_threshold: int,
+                    sentinel_base: int) -> torch.Tensor:
+    """(B, H, 2W) int32 key images of a (B, H, W) batch of uint8 pairs:
+    the left keys (positions x) in columns [0, W), the right keys
+    (positions W + x) in [W, 2W).  One launch of the key kernel for the
+    whole batch on CUDA tensors (counted in ``fused_keys.launches``); two
+    calls of the plain twin on CPU tensors."""
+    require_u8(lefts)
+    require_u8(rights)
+    check_mask(mask)
+    if (lefts.dim() != 3 or lefts.shape != rights.shape
+            or lefts.device != rights.device):
+        raise ValueError(f"fused_key_image: expected two (B, H, W) batches "
+                         f"on one device, got {tuple(lefts.shape)} on "
+                         f"{lefts.device} and {tuple(rights.shape)} on "
+                         f"{rights.device}")
+    b, h, w = lefts.shape
+    out = torch.empty((b, h, 2 * w), dtype=torch.int32, device=lefts.device)
+    if lefts.device.type == "cpu":
+        for img, col in ((lefts, 0), (rights, w)):
+            out[..., col:col + w] = fused_keys_plain(
+                img, mask, gradient_threshold, col, sentinel_base)
+        return out
+    _launch([(lefts.contiguous(), 0, 0), (rights.contiguous(), w, w)], out,
+            mask, gradient_threshold, sentinel_base, 0)
+    return out
 
 
 def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,

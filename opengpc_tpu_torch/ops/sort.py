@@ -42,6 +42,13 @@ def _check(key: torch.Tensor, payload: torch.Tensor) -> None:
                          "memory")
 
 
+def _vector_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernel's vector loads
+    need: a view that starts off 16 bytes is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def bitonic_sort_rows_plain(key: torch.Tensor, payload: torch.Tensor):
     """Plain-PyTorch twin: the same network as whole-row tensor ops."""
     _check(key, payload)
@@ -75,7 +82,7 @@ def bitonic_sort_rows(key: torch.Tensor, payload: torch.Tensor):
                          "tensors")
     from opengpc_tpu_torch.ops._build import check_launch, load_library
 
-    key, payload = key.contiguous(), payload.contiguous()
+    key, payload = _vector_ready(key), _vector_ready(payload)
     key_s, pay_s = torch.empty_like(key), torch.empty_like(payload)
     lib = load_library()
     with torch.cuda.device(key.device):

@@ -285,7 +285,7 @@ def build_sharded_frame_sparsematch(forest_or_mask,
                                     settings: InferenceSettings, group=None,
                                     contract: str = "masked", chunk=None,
                                     k=None, bucket_cap=None,
-                                    device="cpu") -> ShardedFrameSparsematch:
+                                    device="cuda") -> ShardedFrameSparsematch:
     """The row-sharded single-frame matcher of one rank as an
     ``nn.Module`` on ``device``.
 

@@ -136,7 +136,7 @@ def test_flat_matcher_batch_matches_jax(epipolar):
     lefts = np.stack([p[0] for p in pairs])
     rights = np.stack([p[1] for p in pairs])
     jout = jinfer.build_sparsematch(jm, js, use_pallas=False)(lefts, rights)
-    mod = pt.build_sparsematch(tm, ts)
+    mod = pt.build_sparsematch(tm, ts, device="cpu")
     tout = mod(torch.from_numpy(lefts), torch.from_numpy(rights))
     assert tout[0].shape == (3, ts.capacity) and tout[3].shape == (3,)
     assert_same(jout, tout)
@@ -152,8 +152,8 @@ def test_flat_matcher_truncates_at_capacity_like_jax(epipolar, name):
     js, ts = settings_pair(epipolar_mode=epipolar, capacity=300)
     left, right = scene("pair", seed=3)
     jout = jinfer.build_sparsematch(jm, js, use_pallas=False)(left, right)
-    tout = pt.build_sparsematch(tm, ts)(torch.from_numpy(left),
-                                        torch.from_numpy(right))
+    tout = pt.build_sparsematch(tm, ts, device="cpu")(
+        torch.from_numpy(left), torch.from_numpy(right))
     assert_same(jout, tout)
     assert int(tout[3]) > ts.capacity
     got = pt.supports_to_numpy(*tout)
@@ -174,8 +174,8 @@ def test_flat_matcher_generic_compact_matches_jax(epipolar, disp_high, name):
     assert not tinfer._global_rows_ok(tm, (H, W), ts)
     left, right = scene("scene", seed=7)
     jout = jinfer.build_sparsematch(jm, js, use_pallas=False)(left, right)
-    tout = pt.build_sparsematch(tm, ts)(torch.from_numpy(left),
-                                        torch.from_numpy(right))
+    tout = pt.build_sparsematch(tm, ts, device="cpu")(
+        torch.from_numpy(left), torch.from_numpy(right))
     assert_same(jout, tout)
     assert int(tout[3]) > 0
 

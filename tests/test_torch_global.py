@@ -49,7 +49,7 @@ def test_global_rows_matcher_matches_jax(kind, name):
     np.testing.assert_array_equal(got, jt.global_row_supports_to_numpy(
         *[np.asarray(a) for a in jout[0]], np.asarray(jout[1])))
     # the same support set as the flat contract in global mode
-    flat = pt.supports_to_numpy(*pt.build_sparsematch(tm, ts)(
+    flat = pt.supports_to_numpy(*pt.build_sparsematch(tm, ts, device="cpu")(
         torch.from_numpy(left), torch.from_numpy(right)))
     assert set(map(tuple, flat.tolist())) == set(map(tuple, got.tolist()))
 
@@ -62,7 +62,7 @@ def test_global_rows_batch_matches_jax():
     rights = np.stack([p[1] for p in pairs])
     jout = jinfer.build_sparsematch_global_rows(jm, js, use_pallas=False)(
         lefts, rights)
-    mod = pt.build_sparsematch_global_rows(tm, ts)
+    mod = pt.build_sparsematch_global_rows(tm, ts, device="cpu")
     tout = mod(torch.from_numpy(lefts), torch.from_numpy(rights))
     assert tout[1].shape[0] == 3 and tout[0][0].dim() == 3
     assert_same(flat_leaves(jout), flat_leaves(tout))
@@ -103,8 +103,8 @@ def test_global_rows_guards():
     left, right = make_pair(40, 80, 3)
     epi = pt.InferenceSettings(epipolar_mode=True)
     with pytest.raises(ValueError, match="global mode"):
-        pt.build_sparsematch_global_rows(tm, epi)(torch.from_numpy(left),
-                                                  torch.from_numpy(right))
+        pt.build_sparsematch_global_rows(tm, epi, device="cpu")(
+            torch.from_numpy(left), torch.from_numpy(right))
     for shape, disp in [((H, W), 128), ((436, 1024), 128), ((436, 1024), 1024),
                         ((4000, 4000), 128)]:
         js, ts = global_settings(disp_high=disp)

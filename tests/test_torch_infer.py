@@ -3,6 +3,7 @@ built matcher's (buf, row_counts) bit-identical to JAX
 ``build_sparsematch_masked(use_pallas=False)``, and the one-call
 ``sparsematch`` equal to JAX ``sparsematch`` and to the native oracle."""
 
+import inspect
 import os
 import subprocess
 
@@ -16,6 +17,7 @@ from opengpc_tpu.io.raw import write_raw
 
 import opengpc_tpu_torch as pt
 import opengpc_tpu_torch.infer as tinfer
+import opengpc_tpu_torch.parallel as tparallel
 from opengpc_tpu_torch.forest import Forest
 from opengpc_tpu_torch.match import MASKED_SENTINEL
 from opengpc_tpu_torch.utils import make_pair, make_scene, make_sparse_pair
@@ -104,8 +106,8 @@ def test_small_frame_skips_interior_slice():
     js, ts = settings_pair()
     left, right = make_pair(27, 80, 3)
     jout = jinfer.build_sparsematch_masked(jm, js, use_pallas=False)(left, right)
-    tout = pt.build_sparsematch_masked(tm, ts)(torch.from_numpy(left),
-                                               torch.from_numpy(right))
+    tout = pt.build_sparsematch_masked(tm, ts, device="cpu")(
+        torch.from_numpy(left), torch.from_numpy(right))
     assert_same_masked(jout, tout)
 
 
@@ -262,8 +264,8 @@ def test_decode_matches_jax_numpy_branch():
     jm, tm = masks("zero")
     js, ts = settings_pair()
     left, right = scene("pair")
-    buf, rc = pt.build_sparsematch_masked(tm, ts)(torch.from_numpy(left),
-                                                  torch.from_numpy(right))
+    buf, rc = pt.build_sparsematch_masked(tm, ts, device="cpu")(
+        torch.from_numpy(left), torch.from_numpy(right))
     got = pt.masked_supports_to_numpy(buf, rc, 128)
     want = jt.masked_supports_to_numpy(buf.numpy(), rc.numpy(), 128)
     np.testing.assert_array_equal(got, want)
@@ -285,3 +287,16 @@ def test_cuda_request_never_runs_on_cpu():
     left, right = make_pair(40, 80, 3)
     with pytest.raises((RuntimeError, AssertionError)):
         pt.sparsematch(left, right, ZERO, ts)
+
+
+@pytest.mark.parametrize("fn", [
+    pt.build_sparsematch_masked, pt.build_sparsematch,
+    pt.build_sparsematch_global_rows, pt.build_sparsematch_rows,
+    pt.build_sparsematch_masked_compact, pt.build_sparsematch_global_compact,
+    tparallel.build_sharded_frame_sparsematch, tinfer._Matcher,
+    pt.sparsematch, pt.extract_descriptors,
+], ids=lambda fn: fn.__name__)
+def test_entry_points_default_to_the_card(fn):
+    """Every builder, the modules' base and the one-call entry points run
+    on the card unless the caller asks for the CPU."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -167,3 +167,53 @@ def test_fused_keys_rejects_out_of_patch_offsets_and_device_mismatch():
         tfused.fused_keys_into(img[None], out, 0, tm, THR, 0, SENTINEL_BASE)
     with pytest.raises(ValueError, match="no kernel"):
         tfused.fused_keys(img.to("meta"), tm, THR, 0, SENTINEL_BASE)
+
+
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("forest", ["defaultZeroForest.txt",
+                                    "defaultTauForest.txt"])
+@pytest.mark.parametrize("w", [96, 101])
+def test_fused_key_image_equals_two_twins_and_jax(batch, forest, w):
+    """The one-launch pair wrapper on CPU tensors: two plain twins side by
+    side, and the JAX package's key image of each pair (jnp ops and the
+    Pallas kernel in interpret mode), bit for bit, at an odd width too."""
+    import opengpc_tpu.infer as jinfer
+    from opengpc_tpu.config import InferenceSettings as JSettings
+
+    rng = np.random.default_rng(batch * 1000 + w)
+    lefts, rights = (np.stack([structured_image(rng, 60, w)
+                               for _ in range(batch)]) for _ in range(2))
+    jm, tm = masks(forest)
+    before = tfused.fused_keys.launches
+    got = tfused.fused_key_image(torch.from_numpy(lefts),
+                                 torch.from_numpy(rights), tm, THR,
+                                 SENTINEL_BASE)
+    assert tfused.fused_keys.launches == before == 0
+    assert got.shape == (batch, 60, 2 * w) and got.dtype == torch.int32
+    twins = torch.cat([
+        tfused.fused_keys_plain(torch.from_numpy(lefts), tm, THR, 0,
+                                SENTINEL_BASE),
+        tfused.fused_keys_plain(torch.from_numpy(rights), tm, THR, w,
+                                SENTINEL_BASE)], dim=2)
+    assert torch.equal(got, twins)
+    js = JSettings(gradient_threshold=THR, epipolar_mode=True)
+    for i in range(batch):
+        same(jinfer._key_image_jnp(lefts[i], rights[i], jm, js), got[i])
+    pallas = [jfused.fused_keys(img, jm, THR, pos_base=pos,
+                                sentinel_base=J_SENTINEL_BASE, interpret=True)
+              for img, pos in ((lefts[0], 0), (rights[0], w))]
+    same(np.concatenate(pallas, axis=1), got[0])
+
+
+def test_fused_key_image_rejects_bad_pairs():
+    _, tm = masks("defaultZeroForest.txt")
+    img = torch.zeros((2, 40, 40), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="batches"):
+        tfused.fused_key_image(img, img[:1], tm, THR, SENTINEL_BASE)
+    with pytest.raises(ValueError, match="batches"):
+        tfused.fused_key_image(img[0], img[0], tm, THR, SENTINEL_BASE)
+    with pytest.raises(ValueError, match="uint8"):
+        tfused.fused_key_image(img.float(), img, tm, THR, SENTINEL_BASE)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfused.fused_key_image(img.to("meta"), img.to("meta"), tm, THR,
+                               SENTINEL_BASE)

@@ -67,8 +67,8 @@ def single_device(contract, mask, settings, left, right):
              "rows": pt.build_sparsematch_rows,
              "masked-compact": pt.build_sparsematch_masked_compact,
              "global-compact": pt.build_sparsematch_global_compact}[contract]
-    return build(mask, settings)(torch.from_numpy(left),
-                                 torch.from_numpy(right))
+    return build(mask, settings, device="cpu")(torch.from_numpy(left),
+                                               torch.from_numpy(right))
 
 
 def support_set(contract, out, settings):
@@ -110,7 +110,8 @@ def check_against_single(contract, tout, single, settings):
 def test_sharded_frame_matches_jax_and_single_device(contract, n):
     jm, tm = masks()
     js, ts = settings_pair(contract)
-    mod = build_sharded_frame_sparsematch(tm, ts, contract=contract)
+    mod = build_sharded_frame_sparsematch(tm, ts, contract=contract,
+                                          device="cpu")
     assert isinstance(mod, torch.nn.Module)
     jrun = jbuild(jm, js, make_mesh(jax.devices()[:n]), use_pallas=False,
                   contract=contract)
@@ -137,7 +138,8 @@ def test_sharded_frame_tau_forest_rows_and_masked():
     left, right = scenes()["dense"]
     for contract in ("masked", "rows"):
         _, ts = settings_pair(contract)
-        mod = build_sharded_frame_sparsematch(tm, ts, contract=contract)
+        mod = build_sharded_frame_sparsematch(tm, ts, contract=contract,
+                                              device="cpu")
         check_against_single(contract, run_sharded(mod, left, right, 4),
                              single_device(contract, tm, ts, left, right), ts)
 
@@ -148,7 +150,7 @@ def test_one_process_helper_equals_gathered_ranks():
     _, tm = masks()
     _, ts = settings_pair("masked")
     left, right = (torch.from_numpy(a) for a in scenes()["sparse"])
-    mod = build_sharded_frame_sparsematch(tm, ts)
+    mod = build_sharded_frame_sparsematch(tm, ts, device="cpu")
     whole = _run_in_one_process(mod, left, right, 2)
     blocks = [tuple(t[i * H // 2:(i + 1) * H // 2] for t in whole)
               for i in range(2)]
@@ -191,7 +193,8 @@ def test_sharded_frame_over_gloo_process_groups(tmp_path, n):
     ranks = _spawn_gloo(tmp_path, n, left, right)
     for contract in CONTRACTS:
         js, ts = settings_pair(contract)
-        mod = build_sharded_frame_sparsematch(tm, ts, contract=contract)
+        mod = build_sharded_frame_sparsematch(tm, ts, contract=contract,
+                                              device="cpu")
         want = leaves(run_sharded(mod, left, right, n))
         for i, leaf in enumerate(want):
             got = [r[f"{contract}/{i}"] for r in ranks]
@@ -212,14 +215,15 @@ def test_sharded_frame_rejects_bad_inputs():
     _, tm = masks()
     _, ts = settings_pair("masked")
     with pytest.raises(ValueError, match="contract"):
-        build_sharded_frame_sparsematch(tm, ts, contract="global")
-    mod = build_sharded_frame_sparsematch(tm, ts)
+        build_sharded_frame_sparsematch(tm, ts, contract="global",
+                                        device="cpu")
+    mod = build_sharded_frame_sparsematch(tm, ts, device="cpu")
     left, right = (torch.from_numpy(a) for a in make_pair(100, 64, 3))
     with pytest.raises(ValueError, match="divide"):
         _run_in_one_process(mod, left, right, 8)
     _, gs = settings_pair("global-compact")
     with pytest.raises(ValueError, match="epipolar"):
-        build_sharded_frame_sparsematch(tm, gs)
+        build_sharded_frame_sparsematch(tm, gs, device="cpu")
     small_l, small_r = (torch.from_numpy(a) for a in make_pair(64, 64, 3))
     with pytest.raises(ValueError, match="halo"):
         _run_in_one_process(mod, small_l, small_r, 8)
@@ -237,7 +241,8 @@ def test_sharded_frame_global_rejects_epipolar_settings():
     _, tm = masks()
     _, ts = settings_pair("masked")
     with pytest.raises(ValueError, match="global"):
-        build_sharded_frame_sparsematch(tm, ts, contract="global-compact")
+        build_sharded_frame_sparsematch(tm, ts, contract="global-compact",
+                                        device="cpu")
 
 
 def test_sharded_frame_rejects_unpackable_forests():
@@ -251,7 +256,8 @@ def test_sharded_frame_rejects_unpackable_forests():
     for contract, match in (("masked", "_rows_ok"),
                             ("global-compact", "_global_rows_ok")):
         _, ts = settings_pair(contract)
-        mod = build_sharded_frame_sparsematch(t32, ts, contract=contract)
+        mod = build_sharded_frame_sparsematch(t32, ts, contract=contract,
+                                              device="cpu")
         with pytest.raises(ValueError, match=match):
             _run_in_one_process(mod, left, right, 2)
 
@@ -263,13 +269,13 @@ def test_sharded_frame_global_lossless_and_overflow():
     jm, tm = masks()
     js, ts = settings_pair("global-compact", vertical_tolerance=0)
     left, right = make_pair(128, 96, 3, seed=21)
-    single = pt.build_sparsematch_global_rows(tm, ts)(
+    single = pt.build_sparsematch_global_rows(tm, ts, device="cpu")(
         torch.from_numpy(left), torch.from_numpy(right))
     want = support_set("global-compact", single, ts)
     assert len(want) > 1000
     mesh = make_mesh()
     lossless = build_sharded_frame_sparsematch(
-        tm, ts, contract="global-compact", chunk=128, k=128)
+        tm, ts, contract="global-compact", chunk=128, k=128, device="cpu")
     out = run_sharded(lossless, left, right, 8)
     assert not bool(out[2])
     assert support_set("global-compact", out, ts) == want
@@ -278,7 +284,7 @@ def test_sharded_frame_global_lossless_and_overflow():
     assert_same(jout, out)
     for kw in ({}, {"chunk": 128, "k": 128, "bucket_cap": 256}):
         flagged = build_sharded_frame_sparsematch(
-            tm, ts, contract="global-compact", **kw)
+            tm, ts, contract="global-compact", device="cpu", **kw)
         out = run_sharded(flagged, left, right, 8)
         jflag = jbuild(jm, js, mesh, use_pallas=False,
                        contract="global-compact", **kw)(left, right)[2]

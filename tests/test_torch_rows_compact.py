@@ -82,7 +82,7 @@ def test_rows_matcher_matches_jax(kind, name):
     js, ts = epi()
     left, right = scene(kind, seed=len(name))
     jout = jinfer.build_sparsematch_rows(jm, js, use_pallas=False)(left, right)
-    mod = pt.build_sparsematch_rows(tm, ts)
+    mod = pt.build_sparsematch_rows(tm, ts, device="cpu")
     assert isinstance(mod, torch.nn.Module)
     tout = mod(torch.from_numpy(left), torch.from_numpy(right))
     assert_same(leaves(jout), leaves(tout))
@@ -93,7 +93,7 @@ def test_rows_matcher_matches_jax(kind, name):
     # the masked contract's support set, in the flat packed order
     flat = pt.supports_to_numpy(*pt.build_sparsematch(
         tm, pt.InferenceSettings(capacity=1 << 16, gradient_threshold=5,
-                                 epipolar_mode=True))(
+                                 epipolar_mode=True), device="cpu")(
         torch.from_numpy(left), torch.from_numpy(right)))
     np.testing.assert_array_equal(got, flat)
 
@@ -107,7 +107,7 @@ def test_rows_batch_fold_matches_jax():
     rights = np.stack([p[1] for p in pairs])
     jout = jinfer.build_sparsematch_rows(jm, js, use_pallas=False)(lefts,
                                                                    rights)
-    mod = pt.build_sparsematch_rows(tm, ts)
+    mod = pt.build_sparsematch_rows(tm, ts, device="cpu")
     tout = mod(torch.from_numpy(lefts), torch.from_numpy(rights))
     assert tout[1].shape == (3, lefts.shape[1])
     assert_same(leaves(jout), leaves(tout))
@@ -128,15 +128,15 @@ def test_masked_compact_matches_jax(kind, name, shape):
     left, right = scene(kind, seed=2, h=shape[0], w=shape[1])
     jout = jinfer.build_sparsematch_masked_compact(jm, js, use_pallas=False)(
         left, right)
-    tout = pt.build_sparsematch_masked_compact(tm, ts)(
+    tout = pt.build_sparsematch_masked_compact(tm, ts, device="cpu")(
         torch.from_numpy(left), torch.from_numpy(right))
     assert tout[2].dtype == torch.bool and tout[2].dim() == 0
     assert bool(tout[2]) == bool(jout[2]) == (kind == "pair")
     if kind == "pair":
         return
     assert_same(leaves(jout), leaves(tout))
-    masked = pt.build_sparsematch_masked(tm, ts)(torch.from_numpy(left),
-                                                 torch.from_numpy(right))
+    masked = pt.build_sparsematch_masked(tm, ts, device="cpu")(
+        torch.from_numpy(left), torch.from_numpy(right))
     got = pt.masked_supports_to_numpy(tout[0], tout[1], ts.disp_high)
     assert len(got) > 0 and as_set(got) == as_set(
         pt.masked_supports_to_numpy(*masked, ts.disp_high))
@@ -150,7 +150,7 @@ def test_masked_compact_batch_folds_with_one_flag():
     rights = np.stack([p[1] for p in pairs])
     jout = jinfer.build_sparsematch_masked_compact(jm, js, use_pallas=False)(
         lefts, rights)
-    tout = pt.build_sparsematch_masked_compact(tm, ts)(
+    tout = pt.build_sparsematch_masked_compact(tm, ts, device="cpu")(
         torch.from_numpy(lefts), torch.from_numpy(rights))
     assert tout[0].shape[0] == 3 and tout[2].dim() == 0
     assert not bool(tout[2]) and not bool(jout[2])
@@ -191,15 +191,15 @@ def test_global_compact_matches_jax(kind, name, shape):
     left, right = scene(kind, seed=4, h=shape[0], w=shape[1])
     jout = jinfer.build_sparsematch_global_compact(jm, js, use_pallas=False)(
         left, right)
-    tout = pt.build_sparsematch_global_compact(tm, ts)(
+    tout = pt.build_sparsematch_global_compact(tm, ts, device="cpu")(
         torch.from_numpy(left), torch.from_numpy(right))
     assert bool(tout[2]) == bool(jout[2]) == (kind == "pair")
     if kind == "pair":
         return
     assert_same(leaves(jout), leaves(tout))
     got = pt.global_row_supports_to_numpy(*tout[0], tout[1])
-    rows = pt.build_sparsematch_global_rows(tm, ts)(torch.from_numpy(left),
-                                                    torch.from_numpy(right))
+    rows = pt.build_sparsematch_global_rows(tm, ts, device="cpu")(
+        torch.from_numpy(left), torch.from_numpy(right))
     assert len(got) > 0 and as_set(got) == as_set(
         pt.global_row_supports_to_numpy(*rows[0], rows[1]))
 
@@ -213,7 +213,7 @@ def test_global_compact_batch_gives_per_pair_flags():
     rights = np.stack([p[1] for p in pairs])
     jout = jinfer.build_sparsematch_global_compact(jm, js, use_pallas=False)(
         lefts, rights)
-    tout = pt.build_sparsematch_global_compact(tm, ts)(
+    tout = pt.build_sparsematch_global_compact(tm, ts, device="cpu")(
         torch.from_numpy(lefts), torch.from_numpy(rights))
     assert tout[2].tolist() == [False, True, False]
     np.testing.assert_array_equal(tout[2].numpy(), np.asarray(jout[2]))
@@ -255,23 +255,26 @@ def test_chunk_rules_match_jax():
         tmatch.resolve_global_compact_chunks(400, 16, 32)
     with pytest.raises(ValueError, match="exceeds"):
         pt.build_sparsematch_masked_compact(masks("zero")[1], epi()[1],
-                                            chunk=8, k=9)
+                                            chunk=8, k=9, device="cpu")
 
 
 def test_contract_guards():
     _, tm = masks("zero")
     left, right = (torch.from_numpy(a) for a in scene("pair"))
     with pytest.raises(ValueError, match="epipolar-only"):
-        pt.build_sparsematch_rows(tm, glob()[1])(left, right)
+        pt.build_sparsematch_rows(tm, glob()[1], device="cpu")(left, right)
     with pytest.raises(ValueError, match="30-test"):
-        pt.build_sparsematch_rows(masks("t32")[1], epi()[1])(left, right)
+        pt.build_sparsematch_rows(masks("t32")[1], epi()[1],
+                                  device="cpu")(left, right)
     with pytest.raises(ValueError, match="30 bits"):
-        pt.build_sparsematch_rows(tm, settings_pair(
-            epipolar_mode=True, disp_high=1 << 22)[1])(left, right)
+        wide = settings_pair(epipolar_mode=True, disp_high=1 << 22)[1]
+        pt.build_sparsematch_rows(tm, wide, device="cpu")(left, right)
     with pytest.raises(ValueError, match="epipolar mode"):
-        pt.build_sparsematch_masked_compact(tm, glob()[1])(left, right)
+        pt.build_sparsematch_masked_compact(tm, glob()[1],
+                                            device="cpu")(left, right)
     with pytest.raises(ValueError, match="global mode"):
-        pt.build_sparsematch_global_compact(tm, epi()[1])(left, right)
+        pt.build_sparsematch_global_compact(tm, epi()[1],
+                                            device="cpu")(left, right)
     with pytest.raises(ValueError, match="30"):
         tmatch.match_epipolar_rows(None, None, None, None, 1 << 22,
                                    key=torch.zeros((2, 400),

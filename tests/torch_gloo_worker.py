@@ -41,7 +41,8 @@ def main(store, world, rank, data, out):
             epipolar_mode=contract != "global-compact")
         mod = build_sharded_frame_sparsematch(mask, settings,
                                               group=dist.group.WORLD,
-                                              contract=contract)
+                                              contract=contract,
+                                              device="cpu")
         left = split_frame(torch.from_numpy(d["left"]), world)[rank]
         right = split_frame(torch.from_numpy(d["right"]), world)[rank]
         for i, leaf in enumerate(leaves(mod(left, right))):
