@@ -48,7 +48,10 @@ FORESTS = ("defaultZeroForest", "defaultTauForest")
 MIN_ACCURACY = 0.99
 KERNEL_SHAPES = ((436, 1024), (37, 130), (129, 1023), (1080, 1920),
                  (2160, 3840))
-MATCH_SHAPES = ((436, 1024), (37, 130), (129, 1023), (1080, 1920))
+# the fused match's frames: every N2 from 256 to 16384, and row counts
+# that are no multiple of a block's rows (37, 129, 437)
+MATCH_SHAPES = ((37, 100), (129, 130), (437, 500), (436, 1023), (436, 1024),
+                (1080, 1920), (129, 4096), (37, 8192))
 PAIR_SHAPES = ((436, 1024), (37, 130), (129, 1023))  # W % 4 = 0, 2, 3
 KERNELS = {  # name -> (wrapper module, source, the TPU kernel it replaces)
     "fused_keys": ("opengpc_tpu_torch.ops.fused",
@@ -197,15 +200,40 @@ def random_masks(seed=1234):
     return masks
 
 
-def wide_tau_mask(seed=4321):
-    """A 32-test random mask with tau in [-400, 400]: thresholds past the
-    +-255 that two uint8 values can differ by."""
+def wide_tau_mask(seed=4321, tests=32):
+    """A random mask of ``tests`` tests with tau in [-400, 400]: thresholds
+    past the +-255 that two uint8 values can differ by."""
     from opengpc_tpu_torch.forest import filter_mask_from_numpy
 
     rng = np.random.default_rng(seed)
-    return filter_mask_from_numpy(rng.integers(-13, 14, (32, 2)),
-                                  rng.integers(-13, 14, (32, 2)),
-                                  rng.integers(-400, 401, 32), 1)
+    return filter_mask_from_numpy(rng.integers(-13, 14, (tests, 2)),
+                                  rng.integers(-13, 14, (tests, 2)),
+                                  rng.integers(-400, 401, tests), 1)
+
+
+def fused_match_masks(masks):
+    """The fused match's masks (at most 30 tests): both shipped forests,
+    random masks of 1, 13, 24 and 30 tests (tau in [-10, 10]) and a
+    30-test mask with tau in [-400, 400]."""
+    from opengpc_tpu_torch.forest import filter_mask_from_numpy
+
+    rng = np.random.default_rng(2468)
+    out = {"zero": masks["zero"], "tau": masks["tau"]}
+    for t in (1, 13, 24, 30):
+        out[f"random_{t}t"] = filter_mask_from_numpy(
+            rng.integers(-13, 14, (t, 2)), rng.integers(-13, 14, (t, 2)),
+            rng.integers(-10, 11, t), 1)
+    out["random_tau400_30t"] = wide_tau_mask(tests=30)
+    return out
+
+
+def patch_image(rng, h, w):
+    """Constant 16x16 patches of four grey levels: at threshold 0 the
+    patch edges are candidates, and their many equal neighbourhoods give
+    long runs of equal codes in a row."""
+    levels = rng.choice(np.array([40, 90, 160, 220], np.uint8),
+                        (h // 16 + 1, w // 16 + 1))
+    return np.kron(levels, np.ones((16, 16), np.uint8))[:h, :w].copy()
 
 
 def cuda_ms(fn, iters):
@@ -222,32 +250,52 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters):
+def device_profile(fn, iters, tries=3):
     """torch.profiler over ``iters`` calls of ``fn``: the window's host ms
     per call, device ms per call summed over kernels, the device busy
-    share, and the kernels by device time (us per call)."""
+    share, and the kernels by device time (us per call).  Every call
+    launches the same kernels, so a kernel counted a fractional number of
+    times a call means the profiler lost events: the window is taken
+    again, up to ``tries`` times, and ``lost_windows`` counts the lost
+    ones (``whole`` is false when every try lost some)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = {}
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", 0)
-        if e.device_type == DeviceType.CUDA and us > 0:
-            kernels[e.key] = (us / iters, e.count / iters)
+    for lost in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
+        kernels, whole = {}, True
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total", 0)
+            if e.device_type == DeviceType.CUDA and us > 0:
+                kernels[e.key] = (us / iters, e.count / iters)
+                whole = whole and e.count % iters == 0
+        if whole:
+            break
     device_ms = sum(us for us, _ in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms,
-                kernels=[[k[:70], us, n] for k, (us, n) in top[:12]])
+                kernels=[[k[:70], us, n] for k, (us, n) in top[:12]],
+                whole=whole, lost_windows=lost + (not whole))
+
+
+def kernel_profile(fn, iters):
+    """``device_profile`` for a time the kernels line or PERF.md reports:
+    the phase fails when every window lost kernel events."""
+    prof = device_profile(fn, iters)
+    if not prof["whole"]:
+        raise SystemExit(f"the profiler lost kernel events in "
+                         f"{prof['lost_windows']} windows: "
+                         f"{prof['kernels'][:3]}")
+    return prof
 
 
 def phase_device():
@@ -500,8 +548,8 @@ def phase_times(smi):
         t0 = time.perf_counter()
         sparsematch(left, right, path, settings, device="cuda")
         one_call.append((time.perf_counter() - t0) * 1e3)
-    prof_kernel = device_profile(kernel, 50)
-    prof_plain = device_profile(plain, 10)
+    prof_kernel = kernel_profile(kernel, 50)
+    prof_plain = kernel_profile(plain, 10)
     prof_b1 = device_profile(lambda: mod(l_d, r_d), 50)
     prof_b4 = device_profile(lambda: mod(lb, rb), 20)
     emit("profile", card=smi, kernel_pair=prof_kernel, plain_pair=prof_plain,
@@ -555,9 +603,12 @@ def finish_vs_twin(name, cases, worst, failures):
 
 def phase_codes_vs_twin(masks):
     """fused_codes vs its twin on the card: codes and candidates bit for
-    bit, at every kernel shape and mask, at thresholds 5 and 10, and as a
-    (4, H, W) batch."""
-    from opengpc_tpu_torch.ops.fused import fused_codes, fused_codes_plain
+    bit, at every kernel shape and mask, at thresholds 5 and 10, as a
+    (4, H, W) batch, and the one-launch pair (fused_codes_pair) at B = 1
+    and 4 and W % 4 = 0, 2, 3 with the 32-test wide-tau mask, the 32-test
+    forest and the zero forest."""
+    from opengpc_tpu_torch.ops.fused import (fused_codes, fused_codes_pair,
+                                             fused_codes_plain)
 
     rng = np.random.default_rng(8)
     worst, cases, failures = 0, 0, []
@@ -580,6 +631,21 @@ def phase_codes_vs_twin(masks):
         worst, cases = max(worst, err), cases + 1
         if err:
             failures.append(("batch4", name, err))
+    pair_masks = {"random_tau400": wide_tau_mask(), "tests32":
+                  masks["tests32"], "zero": masks["zero"]}
+    for h, w in PAIR_SHAPES:
+        for b in (1, 4):
+            lefts, rights = (torch.from_numpy(np.stack(
+                [structured_image(rng, h, w) for _ in range(b)])).cuda()
+                for _ in range(2))
+            for name, mask in pair_masks.items():
+                got = fused_codes_pair(lefts, rights, mask, 5)
+                want = [fused_codes_plain(x, mask, 5) for x in (lefts, rights)]
+                err = max(max_err(g, w_) for gs, ws in zip(got, want)
+                          for g, w_ in zip(gs, ws))
+                worst, cases = max(worst, err), cases + 1
+                if err or not want[1][1].any():
+                    failures.append(("pair", b, h, w, name, err))
     torch.cuda.synchronize()
     return finish_vs_twin("fused_codes", cases, worst, failures)
 
@@ -648,25 +714,47 @@ def phase_sort_vs_twin(masks):
 
 def phase_fused_match_vs_twin(masks):
     """fused_sparsematch_rows vs its twin on the card: keep, src_x and d
-    bit for bit, at four shapes up to 1080x1920, with both shipped
-    forests."""
+    bit for bit.  At every shape of MATCH_SHAPES (every N2 from 256 to
+    16384): the seven masks of ``fused_match_masks`` (threshold 5,
+    disp_high 128), a flat image (no candidate) and an image of constant
+    patches at threshold 0 (long runs of equal codes).  At three shapes,
+    thresholds 0, 5, 40 x disp_high 0, 16, 128 with the zero forest.  The
+    shipped forests must keep supports in the base cases."""
     from opengpc_tpu_torch.ops.fused_match import (
         fused_sparsematch_rows, fused_sparsematch_rows_plain)
     from opengpc_tpu_torch.utils import make_pair
 
+    fm_masks = fused_match_masks(masks)
+    rng = np.random.default_rng(13)
     worst, cases, failures, kept = 0, 0, [], {}
+
+    def case(tag, left, right, mask, thr, disp, need_keep):
+        nonlocal worst, cases
+        got = fused_sparsematch_rows(left, right, mask, thr, disp)
+        want = fused_sparsematch_rows_plain(left, right, mask, thr, disp)
+        err = max(max_err(g, w_) for g, w_ in zip(got, want))
+        worst, cases = max(worst, err), cases + 1
+        kept[tag] = int(want[0].sum())
+        if err or (need_keep and not want[0].any()):
+            failures.append((tag, err, kept[tag]))
+
     for h, w in MATCH_SHAPES:
         left, right = (torch.from_numpy(a).cuda()
-                       for a in make_pair(h, w, TRUE_DISP, seed=h))
-        for name in ("zero", "tau"):
-            got = fused_sparsematch_rows(left, right, masks[name], 5, 128)
-            want = fused_sparsematch_rows_plain(left, right, masks[name], 5,
-                                                128)
-            err = max(max_err(g, w_) for g, w_ in zip(got, want))
-            worst, cases = max(worst, err), cases + 1
-            kept[f"{h}x{w}/{name}"] = int(want[0].sum())
-            if err or not want[0].any():
-                failures.append((h, w, name, err))
+                       for a in make_pair(h, w, TRUE_DISP, seed=h + w))
+        for name, mask in fm_masks.items():
+            case(f"{h}x{w}/{name}", left, right, mask, 5, 128,
+                 name in ("zero", "tau"))
+        flat = torch.full((h, w), 77, dtype=torch.uint8, device="cuda")
+        case(f"{h}x{w}/flat", flat, flat, fm_masks["zero"], 5, 128, False)
+        patches = torch.from_numpy(patch_image(rng, h, w)).cuda()
+        shifted = torch.roll(patches, -TRUE_DISP, dims=1)
+        case(f"{h}x{w}/patches-thr0", patches, shifted, fm_masks["zero"], 0,
+             128, False)
+        if (h, w) in ((129, 130), (436, 1024), (129, 4096)):
+            for thr in (0, 5, 40):
+                for disp in (0, 16, 128):
+                    case(f"{h}x{w}/thr{thr}/disp{disp}", left, right,
+                         fm_masks["zero"], thr, disp, False)
     torch.cuda.synchronize()
     emit("fused_match_keeps", kept=kept)
     return finish_vs_twin("fused_sparsematch_rows", cases, worst, failures)
@@ -689,12 +777,12 @@ def route_cases():
     """The one-call routes at 436x1024: (name, settings, forest, expected
     route, launches of the path, gate on the true disparity).  A path is
     the dense and sparse pairs and a batch of 4, which these routes run
-    pair by pair: 6 pairs, each one key-kernel launch or two code-kernel
-    launches."""
+    pair by pair: 6 pairs, each one key-kernel or one code-kernel
+    launch."""
     from opengpc_tpu_torch import InferenceSettings
 
     cap = H * W  # the default 32768 would truncate a dense scene
-    keys, codes = {"fused_keys": 6}, {"fused_codes": 12}
+    keys, codes = {"fused_keys": 6}, {"fused_codes": 6}
     return [
         ("global-rows/zero", InferenceSettings(), "defaultZeroForest",
          "global-rows", keys, False),
@@ -773,8 +861,9 @@ def phase_variants(oracle, paths, masks, launches):
     the default flat path's support set and pass the oracle gate; each
     runs as one path with the launch counters at 0."""
     from opengpc_tpu_torch import InferenceSettings, supports_to_numpy
-    from opengpc_tpu_torch.infer import _codes_and_candidates, _sparsematch_impl
+    from opengpc_tpu_torch.infer import _sparsematch_impl
     from opengpc_tpu_torch.match import match_epipolar
+    from opengpc_tpu_torch.ops.fused import fused_codes_pair
     from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
 
     settings = InferenceSettings(capacity=H * W, **SETTINGS_KW)
@@ -782,8 +871,8 @@ def phase_variants(oracle, paths, masks, launches):
               "sparse": make_sparse_pair(H, W, TRUE_DISP, density=0.15)}
 
     def bitonic(l, r, mask):
-        cl, vl = _codes_and_candidates(l, mask, settings)
-        cr, vr = _codes_and_candidates(r, mask, settings)
+        (cl, vl), (cr, vr) = fused_codes_pair(l, r, mask,
+                                              settings.gradient_threshold)
         (xs, ys, ds), count = match_epipolar(
             cl, cr, vl, vr, settings.disp_high, settings.capacity,
             packed=True, sort_impl="bitonic", num_tests=mask.num_tests)
@@ -796,7 +885,7 @@ def phase_variants(oracle, paths, masks, launches):
         "bitonic": bitonic}
     expect = {"default": {"fused_keys": 1},
               "fused_match": {"fused_sparsematch_rows": 1},
-              "bitonic": {"fused_codes": 2, "bitonic_sort_rows": 1}}
+              "bitonic": {"fused_codes": 1, "bitonic_sort_rows": 1}}
     failures, report, all_counts = [], {}, {}
     for forest, mname in (("defaultZeroForest", "zero"),
                           ("defaultTauForest", "tau")):
@@ -858,18 +947,18 @@ def kernel_vs_plain_times(kernel, plain, k_iters, p_iters, library=None):
     p2 = cuda_ms(plain, p_iters)
     out = {}
     if library is not None:
-        l1 = device_profile(library, max(5, k_iters // 10))
-        kl = [device_profile(kernel, max(5, k_iters // 10))
+        l1 = kernel_profile(library, max(5, k_iters // 10))
+        kl = [kernel_profile(kernel, max(5, k_iters // 10))
               for _ in range(2)]
-        l2 = device_profile(library, max(5, k_iters // 10))
+        l2 = kernel_profile(library, max(5, k_iters // 10))
         out = dict(library_events_ms=[cuda_ms(library, k_iters)
                                       for _ in range(2)],
                    library_device_ms=[l1["device_ms"], l2["device_ms"]],
                    library_kernels=l1["kernels"][:4],
                    turns_device_ms=[kl[0]["device_ms"], kl[1]["device_ms"]],
                    library_ms=(l1["device_ms"] + l2["device_ms"]) / 2)
-    pk = device_profile(kernel, max(5, k_iters // 10))
-    pp = device_profile(plain, max(3, p_iters // 5))
+    pk = kernel_profile(kernel, max(5, k_iters // 10))
+    pp = kernel_profile(plain, max(3, p_iters // 5))
     return dict(out, events_ms=[k1, k2], plain_events_ms=[p1, p2],
                 device_ms=pk["device_ms"], plain_device_ms=pp["device_ms"],
                 kernels=pk["kernels"][:4], plain_kernels=pp["kernels"][:4],
@@ -905,7 +994,7 @@ def phase_key_times(smi, masks):
                              .cuda() for i in (0, 1))
             keys = fused_key_image(lefts, rights, zero, 5, SENTINEL_BASE)
             ncand = int((keys < SENTINEL_BASE).sum())
-            prof = [device_profile(lambda: fused_key_image(
+            prof = [kernel_profile(lambda: fused_key_image(
                 lefts, rights, zero, 5, SENTINEL_BASE), 50) for _ in range(2)]
             ms, by = bound(2 * b * h * w * (1 + 4),
                            code_ops(2 * b, h, w, ncand, zero.num_tests))
@@ -918,19 +1007,21 @@ def phase_key_times(smi, masks):
 
 
 def phase_new_times(smi, masks):
-    """The new kernels against their twins at the main-path shapes, the
-    bitonic sort against torch.sort on the matcher rows, and ms per pair of
-    the global-rows route, the flat route (32 tests) and the fused-match
-    and bitonic variants (zero forest) at B=1 and B=4."""
+    """The code kernel (both images of a pair in one launch, 32 tests), the
+    bitonic sort (against torch.sort on the matcher rows) and the fused
+    match (at 436x1024 and 1080x1920, beside the row-sort kernel alone on
+    the same padded rows) against their twins, and ms
+    per pair of the global-rows route, the flat route (32 tests) and the
+    fused-match and bitonic variants (zero forest) at B=1 and B=4."""
     from opengpc_tpu_torch import (InferenceSettings, build_sparsematch,
                                    build_sparsematch_global_rows)
-    from opengpc_tpu_torch.infer import (_codes_and_candidates, _interior_rows,
-                                         _key_image, _sparsematch_impl)
+    from opengpc_tpu_torch.infer import (_interior_rows, _key_image,
+                                         _sparsematch_impl)
     from opengpc_tpu_torch.match import match_epipolar
-    from opengpc_tpu_torch.ops.fused import fused_codes, fused_codes_plain
+    from opengpc_tpu_torch.ops.fused import fused_codes_pair, fused_codes_plain
     from opengpc_tpu_torch.ops.fused_match import (
         fused_sparsematch_rows, fused_sparsematch_rows_plain)
-    from opengpc_tpu_torch.match import SENTINEL_BASE
+    from opengpc_tpu_torch.match import PAD_KEY_BASE, SENTINEL_BASE
     from opengpc_tpu_torch.ops.sort import (bitonic_sort_rows,
                                             bitonic_sort_rows_plain,
                                             padded_row_length)
@@ -942,7 +1033,7 @@ def phase_new_times(smi, masks):
     epi = InferenceSettings(capacity=H * W, **SETTINGS_KW)
     times = {}
     times["fused_codes"] = with_bound(kernel_vs_plain_times(
-        lambda: (fused_codes(l_d, t32, 5), fused_codes(r_d, t32, 5)),
+        lambda: fused_codes_pair(l_d, r_d, t32, 5),
         lambda: (fused_codes_plain(l_d, t32, 5),
                  fused_codes_plain(r_d, t32, 5)), 200, 20),
         2 * H * W * (1 + 4 + 1),
@@ -958,14 +1049,29 @@ def phase_new_times(smi, masks):
         library=lambda: torch.sort(key, dim=1, stable=False)),
         16 * rows * n, network_ops(rows, n))
     times["bitonic_sort_rows"]["rows"] = [rows, n]
-    n2 = padded_row_length(W)
-    ncand = int((full_key < SENTINEL_BASE).sum())
-    times["fused_sparsematch_rows"] = with_bound(kernel_vs_plain_times(
-        lambda: fused_sparsematch_rows(l_d, r_d, zero, 5, 128),
-        lambda: fused_sparsematch_rows_plain(l_d, r_d, zero, 5, 128), 200,
-        20), 2 * H * W + 9 * H * n2,
-        code_ops(2, H, W, ncand, zero.num_tests) + network_ops(H, n2)
-        + 10 * H * n2)
+    big = [torch.from_numpy(a).cuda()
+           for a in make_pair(1080, 1920, TRUE_DISP)]
+    for name, (lm, rm) in (("fused_sparsematch_rows", (l_d, r_d)),
+                           ("fused_sparsematch_rows_1080x1920", big)):
+        h, w = lm.shape
+        n2 = padded_row_length(w)
+        ncand = int((_key_image(lm, rm, zero, epi) < SENTINEL_BASE).sum())
+        times[name] = with_bound(kernel_vs_plain_times(
+            lambda: fused_sparsematch_rows(lm, rm, zero, 5, 128),
+            lambda: fused_sparsematch_rows_plain(lm, rm, zero, 5, 128), 200,
+            20), 2 * h * w + 9 * h * n2,
+            code_ops(2, h, w, ncand, zero.num_tests) + network_ops(h, n2)
+            + 10 * h * n2)
+        # device us of the row-sort kernel alone on the same padded key
+        # rows, the network the fused kernel runs
+        lane = torch.arange(n2, dtype=torch.int32, device="cuda")
+        rows_key = torch.cat([_key_image(lm, rm, zero, epi),
+                              (PAD_KEY_BASE + lane[2 * w:]).expand(h, -1)],
+                             dim=1)
+        rows_pos = lane.expand(h, -1).contiguous()
+        times[name]["sort_alone_device_us"] = [kernel_profile(
+            lambda: bitonic_sort_rows(rows_key, rows_pos), 50)["device_ms"]
+            * 1e3 for _ in range(2)]
     emit("kernel_times", card=smi, shape=[H, W], **times)
 
     pairs = [make_pair(H, W, TRUE_DISP, seed=300 + b) for b in range(4)]
@@ -981,8 +1087,8 @@ def phase_new_times(smi, masks):
             if l.dim() == 3 else fn(l, r)
 
     def bitonic(l, r):
-        cl, vl = _codes_and_candidates(l, zero, epi)
-        cr, vr = _codes_and_candidates(r, zero, epi)
+        (cl, vl), (cr, vr) = fused_codes_pair(l, r, zero,
+                                              epi.gradient_threshold)
         return match_epipolar(cl, cr, vl, vr, epi.disp_high, epi.capacity,
                               packed=True, sort_impl="bitonic",
                               num_tests=zero.num_tests)

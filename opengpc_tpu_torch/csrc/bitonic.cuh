@@ -1,11 +1,8 @@
-// Bitonic networks over int32 rows with an int32 payload: the port's
-// counterpart of opengpc_tpu/ops/sort.py::bitonic_network.  Two forms of
-// one network:
-//   bitonic_rows            rows held in shared memory, one barrier a stage;
-//                           the fused match kernel (fused_match.cu) calls it;
-//   bitonic_thread_sort .. rows held in registers, re-laid through shared
-//   bitonic_smem_stage      memory between runs of stages; the bitonic
-//                           row-sort kernel (bitonic_sort.cu) calls them.
+// Bitonic network over int32 rows with an int32 payload: the port's
+// counterpart of opengpc_tpu/ops/sort.py::bitonic_network.  The rows are
+// held in registers, 16 lanes a thread, and re-laid through shared memory
+// between runs of stages (bitonic_sort_block); the bitonic row-sort kernel
+// (bitonic_sort.cu) and the fused match kernel (fused_match.cu) call it.
 //
 // The network is the Pallas one, stage for stage: for size = 2, 4, .., n
 // and j = size/2, .., 1, lane i meets lane i ^ j; the pair sorts ascending
@@ -23,39 +20,7 @@
 
 namespace ogpc {
 
-// Sort each of `rows` rows of n = 2^log2n int32 keys, at key + r*n, with
-// the payload at pay + r*n permuted alongside.  All nthreads threads of the
-// block call it; each stage ends with a barrier, so the rows are sorted
-// and visible to every thread on return.
-__device__ __forceinline__ void bitonic_rows(int32_t* key, int32_t* pay,
-                                             int rows, int log2n, int tid,
-                                             int nthreads) {
-  const int n = 1 << log2n;
-  const int half_bits = log2n - 1;
-  const int pairs = rows << half_bits;
-  for (int size = 2; size <= n; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      for (int p = tid; p < pairs; p += nthreads) {
-        const int q = p & ((1 << half_bits) - 1);
-        // the q-th low lane: q with a 0 inserted at bit log2(j)
-        const int lo = ((q & ~(j - 1)) << 1) | (q & (j - 1));
-        const int a = ((p >> half_bits) << log2n) + lo;
-        const int b = a + j;
-        const int32_t ka = key[a], kb = key[b];
-        if ((lo & size) == 0 ? kb < ka : kb > ka) {
-          key[a] = kb;
-          key[b] = ka;
-          const int32_t pa = pay[a];
-          pay[a] = pay[b];
-          pay[b] = pa;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// The register form runs every stage ascending on keys XORed with -1 in
+// Every stage runs ascending on keys XORed with -1 in
 // the lanes whose pair descends: ~x reverses the order of int32 exactly,
 // so "swap iff kb < ka" on the flipped keys is the network's "swap iff
 // kb > ka" on the keys, ties included.  A lane's flip for one size is
@@ -219,6 +184,64 @@ __device__ __forceinline__ void bitonic_smem_stage(int32_t* key, int32_t* pay,
     }
   }
   __syncthreads();
+}
+
+// The whole network on the block's rows of n = 2^k lanes (256 <= n),
+// rows one after another in the block's E * kThreads lanes, held in
+// layout A: register r of thread t holds block lane E t + r, keys in k and
+// payloads in v.  key and pay are the block's 2 x E * kThreads words of
+// shared memory, used for the re-lays and the stages past a warp.  Each
+// size runs ascending on keys flipped in its descending lanes (the last
+// size, n, flips none), in layout A unless noted: distances >= 32E through
+// the block's shared memory and read back as layout B, or A re-laid as B
+// through the warp's own shared memory; 32 .. 16E/2 in B's registers; 16
+// across lanes l ^ 16; re-laid as A; E/2 .. 1 in A's registers.  Every
+// thread of the block calls it; it returns the rows sorted in layout A.
+template <int E, int kThreads>
+__device__ __forceinline__ void bitonic_sort_block(int32_t (&k)[E],
+                                                   int32_t (&v)[E],
+                                                   int32_t* key, int32_t* pay,
+                                                   int n) {
+  constexpr int kElems = E * kThreads;
+  constexpr int kSeg = 32 * E;  // a warp's lanes
+  const int l = threadIdx.x % 32;
+  const int seg = threadIdx.x / 32 * kSeg;
+  const int e0 = threadIdx.x * E;
+  const int i0 = e0 & (n - 1);  // row lane of register 0 in layout A
+
+  bitonic_thread_sort<E>(k, v, i0);
+  for (int size = 2 * E, prev = E; size <= n; prev = size, size <<= 1) {
+    bitonic_reflip<E>(k, i0, prev, size);
+    int j = size >> 1;
+    bool b_layout = false;
+    if (j >= kSeg) {  // distances past a warp: the block, in shared memory
+      __syncwarp();
+      bitonic_store_a<E>(key, pay, e0, k, v);
+      __syncthreads();
+      for (; j >= kSeg; j >>= 1)
+        bitonic_smem_stage(key, pay, kElems, j, threadIdx.x, kThreads);
+      bitonic_load_b<E>(key, pay, seg, l, k, v);
+      b_layout = true;
+    } else if (j >= 32) {  // re-lay the warp's lanes as layout B
+      __syncwarp();
+      bitonic_store_a<E>(key, pay, e0, k, v);
+      __syncwarp();
+      bitonic_load_b<E>(key, pay, seg, l, k, v);
+      b_layout = true;
+    }
+    if (b_layout) {
+      // distances 32 .. j in registers, 16 across lanes l ^ 16, back to A
+      bitonic_thread_stages<E>(k, v, j / 16);
+      bitonic_lane_stage<E>(k, v, (l & 16) != 0, 16);
+      __syncwarp();
+      bitonic_store_b<E>(key, pay, seg, l, k, v);
+      __syncwarp();
+      bitonic_load_a<E>(key, pay, e0, k, v);
+    } else {  // size 32: distance 16 across lanes l ^ 1
+      bitonic_lane_stage<E>(k, v, (i0 & 16) != 0, 1);
+    }
+    bitonic_thread_stages<E>(k, v, size);
+  }
 }
 
 }  // namespace ogpc

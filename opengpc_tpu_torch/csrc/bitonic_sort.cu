@@ -23,7 +23,8 @@
 //      register pairs, no memory and no barrier;
 //   B  register r of warp lane l holds lane 512 w + 32 r + l: distances
 //      32 .. 256 are register pairs.
-// A size's stages run: distances >= 512 in shared memory (one barrier a
+// A size's stages (bitonic.cuh's bitonic_sort_block, which the fused match
+// kernel runs too) run: distances >= 512 in shared memory (one barrier a
 // stage; N = 16384 keeps its 128 KB in dynamic shared memory), read back
 // as layout B, or A re-laid as B through the warp's own shared memory
 // (__syncwarp only); 32 .. 256 in B's registers; 16 across lanes
@@ -64,17 +65,13 @@ bitonic_sort_rows_kernel(const int32_t* __restrict__ key_in,
                          int log2n) {
   constexpr int E = kLanes;
   constexpr int kElems = E * kThreads;
-  constexpr int kSeg = 32 * E;  // a warp's lanes
   extern __shared__ int4 smem4[];  // keys, then payloads
   int32_t* key = reinterpret_cast<int32_t*>(smem4);
   int32_t* pay = key + kElems;
   const int n = 1 << log2n;
-  const int l = threadIdx.x % 32;
-  const int seg = threadIdx.x / 32 * kSeg;
-  const int e0 = threadIdx.x * E;
-  const long long first = static_cast<long long>(blockIdx.x) * kElems + e0;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * kElems + threadIdx.x * E;
   const bool live = first < total;  // a thread's lanes share one row
-  const int i0 = e0 & (n - 1);  // row lane of register 0 in layout A
 
   int32_t k[E], v[E];
 #pragma unroll
@@ -88,41 +85,7 @@ bitonic_sort_rows_kernel(const int32_t* __restrict__ key_in,
     v[4 * q] = b.x; v[4 * q + 1] = b.y; v[4 * q + 2] = b.z; v[4 * q + 3] = b.w;
   }
 
-  // each size runs ascending on keys flipped in its descending lanes (the
-  // last size, n, flips none), in layout A unless noted
-  ogpc::bitonic_thread_sort<E>(k, v, i0);
-  for (int size = 2 * E, prev = E; size <= n; prev = size, size <<= 1) {
-    ogpc::bitonic_reflip<E>(k, i0, prev, size);
-    int j = size >> 1;
-    bool b_layout = false;
-    if (j >= kSeg) {  // distances past a warp: the block, in shared memory
-      __syncwarp();
-      ogpc::bitonic_store_a<E>(key, pay, e0, k, v);
-      __syncthreads();
-      for (; j >= kSeg; j >>= 1)
-        ogpc::bitonic_smem_stage(key, pay, kElems, j, threadIdx.x, kThreads);
-      ogpc::bitonic_load_b<E>(key, pay, seg, l, k, v);
-      b_layout = true;
-    } else if (j >= 32) {  // re-lay the warp's lanes as layout B
-      __syncwarp();
-      ogpc::bitonic_store_a<E>(key, pay, e0, k, v);
-      __syncwarp();
-      ogpc::bitonic_load_b<E>(key, pay, seg, l, k, v);
-      b_layout = true;
-    }
-    if (b_layout) {
-      // distances 32 .. j in registers, 16 across lanes l ^ 16, back to A
-      ogpc::bitonic_thread_stages<E>(k, v, j / 16);
-      ogpc::bitonic_lane_stage<E>(k, v, (l & 16) != 0, 16);
-      __syncwarp();
-      ogpc::bitonic_store_b<E>(key, pay, seg, l, k, v);
-      __syncwarp();
-      ogpc::bitonic_load_a<E>(key, pay, e0, k, v);
-    } else {  // size 32: distance 16 across lanes l ^ 1
-      ogpc::bitonic_lane_stage<E>(k, v, (i0 & 16) != 0, 1);
-    }
-    ogpc::bitonic_thread_stages<E>(k, v, size);
-  }
+  ogpc::bitonic_sort_block<E, kThreads>(k, v, key, pay, n);
 
   if (live) {
 #pragma unroll

@@ -134,7 +134,8 @@ struct CodeTile {
 
 // StripTile: the same math for strips of 4 horizontally adjacent pixels,
 // with the blurred region held as 16-bit lanes, two pixels to a word (the
-// key kernel's tile; the other code kernels still use CodeTile).
+// tile of the key, code and fused match kernels; only the slab key kernel
+// still uses CodeTile).
 //
 //   raw      the (kTileH+28) x (kTileW+32) uint8 window, column 0 at image
 //            x0 - 16 so that rows stage as aligned 16-byte vectors;

@@ -54,7 +54,7 @@ from opengpc_tpu_torch.match import (MASKED_SENTINEL, SENTINEL_BASE, _bits,
                                      match_global_rows_compact,
                                      resolve_masked_compact_chunks)
 from opengpc_tpu_torch.ops.fused import (_slab_rows, fused_codes,
-                                         fused_key_image,
+                                         fused_codes_pair, fused_key_image,
                                          fused_keys_slab_into, mask_tests)
 from opengpc_tpu_torch.ops.fused_match import fused_sparsematch_rows
 from opengpc_tpu_torch.ops.preprocess import CANDIDATE_MARGIN, require_u8
@@ -213,8 +213,8 @@ def _sparsematch_impl(left, right, mask: FilterMask,
             key=_key_image(left, right, mask, settings),
             num_tests=mask.num_tests)
         return xs, ys, ds, count
-    codes_l, cand_l = _codes_and_candidates(left, mask, settings)
-    codes_r, cand_r = _codes_and_candidates(right, mask, settings)
+    (codes_l, cand_l), (codes_r, cand_r) = fused_codes_pair(
+        left, right, mask, settings.gradient_threshold)
     if settings.epipolar_mode:
         (xs, ys, ds), count = match_epipolar(
             codes_l, codes_r, cand_l, cand_r, settings.disp_high,

@@ -34,7 +34,7 @@ PTXAS_FLAGS = ("-Xptxas", "-v")
 _ENTRY_POINTS = {
     "ogpc_fused_keys": ("pppiiiiiiiiipiiiip", "i"),
     "ogpc_fused_keys_slab": ("ppiiiipiiiiiip", "i"),
-    "ogpc_fused_codes": ("pppiiipiip", "i"),
+    "ogpc_fused_codes": ("ppppppiiipiip", "i"),
     "ogpc_fused_census": ("ppiip", "i"),
     "ogpc_bitonic_sort_rows": ("ppppiip", "i"),
     "ogpc_fused_sparsematch_rows": ("pppppiiipiiip", "i"),

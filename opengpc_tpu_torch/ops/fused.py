@@ -3,7 +3,8 @@ pass, emitting the matcher's sentinel-packed sort keys of a whole image
 (``fused_keys``), of both images of a batch of pairs in one launch
 (``fused_key_image``) or of a row slab of a larger image (``fused_keys_slab``,
 the sharded frame's kernel), or the codes and candidates as two images
-(``fused_codes``); and the 5x5 census (``fused_census``).
+(``fused_codes``, or ``fused_codes_pair`` for both images of a pair in
+one launch); and the 5x5 census (``fused_census``).
 
 Each wrapper launches its kernel (``csrc/fused_keys.cu``,
 ``csrc/fused_keys_slab.cu``, ``csrc/fused_codes.cu``,
@@ -281,23 +282,61 @@ def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,
 fused_keys.launches = 0
 
 
-def _launch_codes(img: torch.Tensor, codes: torch.Tensor, cand: torch.Tensor,
-                  mask: FilterMask, gradient_threshold: int) -> None:
-    """Launch the code kernel on the contiguous (B, H, W) CUDA batch
-    ``img`` into ``codes`` (int32) and ``cand`` (bool), on the current
-    stream, without synchronizing."""
+def _launch_codes(sides, mask: FilterMask, gradient_threshold: int) -> None:
+    """One launch of the code kernel for one or two ``sides``, each (img,
+    codes, cand): a contiguous (B, H, W) CUDA batch and its int32 codes and
+    bool candidates of the same shape; on the current stream, without
+    synchronizing."""
     from opengpc_tpu_torch.ops._build import check_launch, load_library
 
+    img = sides[0][0]
+    ptrs = [t.data_ptr() for side in sides for t in side]
+    img0, codes0, cand0, img1, codes1, cand1 = ptrs + [None] * (6 - len(ptrs))
     tests = _tests_array(mask)
     lib = load_library()
     with torch.cuda.device(img.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ogpc_fused_codes(
-            img.data_ptr(), codes.data_ptr(), cand.data_ptr(), *img.shape,
-            tests.ctypes.data, tests.shape[0],
-            int(gradient_threshold) ** 2, stream)
+            img0, img1, codes0, cand0, codes1, cand1, *img.shape,
+            tests.ctypes.data, tests.shape[0], int(gradient_threshold) ** 2,
+            stream)
     check_launch("fused_codes", rc)
     fused_codes.launches += 1
+
+
+def _fused_codes_sides(imgs, mask: FilterMask, gradient_threshold: int):
+    """[(codes int32, candidates bool)] of one or two uint8 images of one
+    (H, W) or (B, H, W) shape on one device: one launch of the code kernel
+    for CUDA tensors, the plain twin for each CPU one."""
+    for img in imgs:
+        require_u8(img)
+    check_mask(mask)
+    first = imgs[0]
+    if first.dim() not in (2, 3):
+        raise ValueError(f"expected an (H, W) image or a (B, H, W) batch, "
+                         f"got {tuple(first.shape)}")
+    for img in imgs[1:]:
+        if img.shape != first.shape or img.device != first.device:
+            raise ValueError(f"fused_codes: expected two images of one shape "
+                             f"on one device, got {tuple(first.shape)} on "
+                             f"{first.device} and {tuple(img.shape)} on "
+                             f"{img.device}")
+    if first.device.type == "cpu":
+        return [fused_codes_plain(img, mask, gradient_threshold)
+                for img in imgs]
+    if not first.is_cuda:
+        raise ValueError(f"fused_codes: no kernel for {first.device} tensors")
+    batch_shape = (-1,) + tuple(first.shape[-2:])
+    sides = []
+    for img in imgs:
+        batch = img.contiguous().reshape(batch_shape)
+        sides.append((batch, torch.empty(batch.shape, dtype=torch.int32,
+                                         device=first.device),
+                      torch.empty(batch.shape, dtype=torch.bool,
+                                  device=first.device)))
+    _launch_codes(sides, mask, gradient_threshold)
+    return [(codes.reshape(first.shape), cand.reshape(first.shape))
+            for _, codes, cand in sides]
 
 
 def fused_codes(img: torch.Tensor, mask: FilterMask,
@@ -305,20 +344,16 @@ def fused_codes(img: torch.Tensor, mask: FilterMask,
     """(codes int32, candidates bool) of an (H, W) or (B, H, W) uint8
     image in one fused pass: the kernel of ``csrc/fused_codes.cu`` for a
     CUDA tensor, ``fused_codes_plain`` for a CPU one."""
-    require_u8(img)
-    check_mask(mask)
-    if img.dim() not in (2, 3):
-        raise ValueError(f"expected an (H, W) image or a (B, H, W) batch, "
-                         f"got {tuple(img.shape)}")
-    if img.device.type == "cpu":
-        return fused_codes_plain(img, mask, gradient_threshold)
-    if not img.is_cuda:
-        raise ValueError(f"fused_codes: no kernel for {img.device} tensors")
-    batch = img.contiguous().reshape((-1,) + tuple(img.shape[-2:]))
-    codes = torch.empty(batch.shape, dtype=torch.int32, device=img.device)
-    cand = torch.empty(batch.shape, dtype=torch.bool, device=img.device)
-    _launch_codes(batch, codes, cand, mask, gradient_threshold)
-    return codes.reshape(img.shape), cand.reshape(img.shape)
+    return _fused_codes_sides([img], mask, gradient_threshold)[0]
+
+
+def fused_codes_pair(left: torch.Tensor, right: torch.Tensor,
+                     mask: FilterMask, gradient_threshold: int):
+    """((codes, candidates) of ``left``, (codes, candidates) of ``right``)
+    for two uint8 images (or batches) of one shape: one launch of the code
+    kernel for both on CUDA tensors (counted in ``fused_codes.launches``),
+    two calls of ``fused_codes_plain`` on CPU tensors."""
+    return tuple(_fused_codes_sides([left, right], mask, gradient_threshold))
 
 
 fused_codes.launches = 0

@@ -12,9 +12,10 @@ run of two is normalized by lo/hi position, longer runs never keep), so the
 two agree bit for bit whatever sort the plain version uses.
 
 Limits: at most 30 tests (codes must stay below the sentinels) and
-W <= 8192, i.e. padded rows of N2 <= 16384 keys, which the kernel holds in
-shared memory.  The wrapper raises ``ValueError`` beyond them; there is no
-fallback to the split pipeline.
+W <= 8192, i.e. padded rows of N2 <= 16384 keys, which one block of the
+kernel holds (16 keys a thread, at most 1024 threads).  The wrapper
+raises ``ValueError`` beyond them; there is no fallback to the split
+pipeline.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def _check(left, right, mask: FilterMask, disp_high: int) -> None:
                          f"got {mask.num_tests}")
     if left.shape[1] > MAX_WIDTH:
         raise ValueError(f"the fused match takes W <= {MAX_WIDTH} (sorted "
-                         f"rows of N2 <= {MAX_N} keys in shared memory), got "
+                         f"rows of N2 <= {MAX_N} keys in one block), got "
                          f"W = {left.shape[1]}")
     if disp_high < 0:
         raise ValueError(f"disp_high must be >= 0, got {disp_high}")

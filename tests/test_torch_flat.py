@@ -114,6 +114,50 @@ def test_fused_codes_batch_equals_single_images_without_a_launch():
         tfused.fused_codes(imgs.float(), tm, THR)
 
 
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("name", ["zero", "t32"])
+def test_fused_codes_pair_equals_two_twins_and_jax(batch, name):
+    """The one-launch pair wrapper on CPU tensors, at an odd width, one
+    image or a batch: two plain twins, and the JAX package's Pallas code
+    kernel (interpret mode) on each image, bit for bit."""
+    rng = np.random.default_rng(len(name) + (batch or 0))
+    shape = (50, 101) if batch is None else (batch, 50, 101)
+    lefts, rights = (np.stack([structured_image(rng, 50, 101)
+                               for _ in range(batch or 1)]).reshape(shape)
+                     for _ in range(2))
+    jm, tm = masks(name)
+    before = tfused.fused_codes.launches
+    got = tfused.fused_codes_pair(torch.from_numpy(lefts),
+                                  torch.from_numpy(rights), tm, THR)
+    assert tfused.fused_codes.launches == before == 0
+    for (codes, cand), img in zip(got, (lefts, rights)):
+        assert codes.shape == cand.shape == shape
+        assert codes.dtype == torch.int32 and cand.dtype == torch.bool
+        want_c, want_v = tfused.fused_codes_plain(torch.from_numpy(img), tm,
+                                                  THR)
+        assert torch.equal(codes, want_c) and torch.equal(cand, want_v)
+        for i, one in enumerate(img.reshape(-1, 50, 101)):
+            jc, jv = jfused.fused_codes(one, jm, THR, interpret=True)
+            np.testing.assert_array_equal(codes.reshape(-1, 50, 101)[i],
+                                          np.asarray(jc))
+            np.testing.assert_array_equal(cand.reshape(-1, 50, 101)[i],
+                                          np.asarray(jv))
+        assert cand.any()
+
+
+def test_fused_codes_pair_rejects_bad_pairs():
+    _, tm = masks("zero")
+    img = torch.zeros((2, 40, 40), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="one shape"):
+        tfused.fused_codes_pair(img, img[:1], tm, THR)
+    with pytest.raises(ValueError, match="one shape"):
+        tfused.fused_codes_pair(img, img.to("meta"), tm, THR)
+    with pytest.raises(ValueError, match="uint8"):
+        tfused.fused_codes_pair(img, img.float(), tm, THR)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfused.fused_codes_pair(img.to("meta"), img.to("meta"), tm, THR)
+
+
 @pytest.mark.parametrize("name", ["zero17", "zero", "t32"])
 @pytest.mark.parametrize("epipolar", [True, False], ids=["epipolar", "global"])
 def test_flat_matcher_matches_jax(epipolar, name):

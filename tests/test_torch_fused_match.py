@@ -14,9 +14,10 @@ from opengpc_tpu.ops import fused_match as jfm
 import opengpc_tpu_torch as pt
 import opengpc_tpu_torch.infer as tinfer
 from opengpc_tpu_torch.ops import fused_match as tfm
+from opengpc_tpu_torch.ops.sort import padded_row_length
 from test_torch_flat import assert_same, masks, structured_image
 
-SHAPES = [(48, 80), (70, 100)]
+SHAPES = [(48, 80), (70, 100), (37, 130)]  # N2 = 256, 256, 512
 
 
 def shifted_pair(shape):
@@ -47,7 +48,8 @@ def test_fused_match_plain_equals_pallas(shape, name):
     keep, src, d = tfm.fused_sparsematch_rows(
         torch.from_numpy(left), torch.from_numpy(right), tm, 5, 64)
     assert tfm.fused_sparsematch_rows.launches == before == 0
-    assert keep.dtype == torch.bool and keep.shape == (shape[0], 256)
+    assert keep.dtype == torch.bool
+    assert keep.shape == (shape[0], padded_row_length(shape[1]))
     np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
     np.testing.assert_array_equal(src.numpy(), np.asarray(jsrc))
     np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
