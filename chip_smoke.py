@@ -4,7 +4,8 @@
 
 Builds the CUDA kernels from the checkout and holds each of them (fused
 keys, one image or both images of a batch of pairs in one launch; slab
-keys, fused codes, census, bitonic row sort at every row length from 256
+keys, one slab or both slabs of a shard in one launch of the key kernel's
+slab mode; fused codes, census, bitonic row sort at every row length from 256
 to 16384 on random, equal, two-valued, sorted, reversed and real padded
 matcher rows; fused match) against its plain-PyTorch twin bit for bit,
 and the census also against the native oracle.  Then it drives every
@@ -67,7 +68,7 @@ KERNELS = {  # name -> (wrapper module, source, the TPU kernel it replaces)
                                "opengpc_tpu_torch/csrc/fused_match.cu",
                                "opengpc_tpu/ops/fused_match.py:146"),
     "fused_keys_slab": ("opengpc_tpu_torch.ops.fused",
-                        "opengpc_tpu_torch/csrc/fused_keys_slab.cu",
+                        "opengpc_tpu_torch/csrc/fused_keys.cu",
                         "opengpc_tpu/ops/fused.py:495"),
     "fused_census": ("opengpc_tpu_torch.ops.fused",
                      "opengpc_tpu_torch/csrc/fused_census.cu",
@@ -93,9 +94,24 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 #   into the MSB-first code.
 BOX_OPS, SOBEL_OPS, KEY_OPS = 23 / 4, 82 / 4, 3
 CODE_OPS, TEST_OPS = 7, 1.5
+# integer operations a pixel of the census in its kernel's two-lane form
+# (csrc/fused_census.cu), per strip of 4 pixels of one output row:
+# - 24 neighbours x 2 words of two lanes, each a three-input add and one
+#   logic op that merges the compare bit into its accumulator (96);
+# - widening the raw row it adds to the window: 4 byte permutes and 3
+#   funnel shifts (7);
+# - the codes: 2 byte permutes a pixel (8), and the box mask, 1 a pixel
+#   (4).  115 a strip: 28.75 a pixel.
+CENSUS_OPS = 115 / 4
 SLAB_SHAPES = ((436, 1024), (2160, 3840))
-CENSUS_SHAPES = ((5, 6), (37, 130), (129, 1023), (436, 1024), (1081, 1919),
-                 (2160, 3840))
+# the one-launch slab pair: (frame h, w, n), W % 4 = 0, 2, 3 and widths
+# that are no multiple of 16 (bytes staged one by one), shard heights
+# that are no multiple of the 32-row tile
+SLAB_PAIR_SHAPES = ((436, 1024, 4), (111, 1000, 3), (222, 1022, 6),
+                    (129, 1023, 3), (135, 130, 5))
+CENSUS_SHAPES = ((5, 6), (3, 13), (2, 3), (21, 9), (64, 15), (37, 130),
+                 (129, 1023), (436, 1024), (61, 1025), (1081, 1919),
+                 (2160, 3840), (2160, 3841))
 
 
 def bound(nbytes, ops):
@@ -1115,11 +1131,19 @@ def phase_new_times(smi, masks):
 
 
 def phase_slab_vs_twin(masks):
-    """fused_keys_slab vs its twin on the card, bit for bit: every shard of
-    n = 2, 4, 8 (where H divides) at 436x1024 and 2160x3840, with every
-    kernel mask; the joined shards equal whole-frame fused_keys."""
+    """The key kernel's slab mode vs its twin on the card, bit for bit:
+    every shard of n = 2, 4, 8 (where H divides) at 436x1024 and
+    2160x3840, one slab a launch, with every kernel mask, and the joined
+    shards equal whole-frame fused_keys; then both slabs of a shard in one
+    launch (``infer._key_image_slab`` on one contiguous (2, sh + 28, W)
+    tensor, as the sharded frame builds them) against the two plain slabs,
+    for the top, a middle and the bottom shard of every SLAB_PAIR_SHAPES
+    frame with three masks, and a (3, sh + 28, W) batch of left and right
+    slabs in one launch."""
     import torch.nn.functional as F
 
+    from opengpc_tpu_torch import InferenceSettings
+    from opengpc_tpu_torch.infer import _key_image_slab
     from opengpc_tpu_torch.match import SENTINEL_BASE
     from opengpc_tpu_torch.ops.fused import (PAD, fused_keys, fused_keys_slab,
                                              fused_keys_slab_plain)
@@ -1150,6 +1174,33 @@ def phase_slab_vs_twin(masks):
                 worst, cases = max(worst, err), cases + 1
                 if err:
                     failures.append((h, w, name, n, "joined", err))
+    settings = InferenceSettings(**SETTINGS_KW)
+    pair_masks = {k: masks[k] for k in ("zero", "tests32", "random0_32t")}
+    for h, w, n in SLAB_PAIR_SHAPES:
+        sh = h // n
+        frames = [F.pad(torch.from_numpy(structured_image(rng, h, w)).cuda(),
+                        (0, 0, PAD, PAD)) for _ in range(6)]
+        for i in (0, n // 2, n - 1):
+            slabs = [f[i * sh:(i + 1) * sh + 2 * PAD] for f in frames]
+            pair = torch.stack(slabs[:2])
+            lefts, rights = torch.stack(slabs[0::2]), torch.stack(slabs[1::2])
+            for name, mask in pair_masks.items():
+                def plain(sl, sr):
+                    return torch.cat([
+                        fused_keys_slab_plain(sl, mask, 5, 0, SENTINEL_BASE,
+                                              i * sh, h),
+                        fused_keys_slab_plain(sr, mask, 5, w, SENTINEL_BASE,
+                                              i * sh, h)], dim=-1)
+                want = plain(pair[0], pair[1])
+                got = _key_image_slab(pair[0], pair[1], mask, settings,
+                                      i * sh, h)
+                got_b = _key_image_slab(lefts, rights, mask, settings,
+                                        i * sh, h)
+                err = max(max_err(got, want),
+                          max_err(got_b, plain(lefts, rights)))
+                worst, cases = max(worst, err), cases + 1
+                if err or not (want < SENTINEL_BASE).any():
+                    failures.append(("pair", h, w, n, i, name, err))
     torch.cuda.synchronize()
     return finish_vs_twin("fused_keys_slab", cases, worst, failures)
 
@@ -1227,12 +1278,12 @@ def phase_sharded_frame(oracle, paths, launches):
     """The row-sharded single frame at 436x1024 with both shipped forests:
     n = 1 over a real one-rank NCCL process group, n = 2 and 4 through the
     one-process helper, every contract; and masked at 2160x3840 with n = 4.
-    Each path runs with the launch counters at 0 and must launch
-    fused_keys_slab; each result equals the single-device module of its
-    contract on the card (bit for bit; the global contract as a support
-    set, its segments following the bucket order) and passes the oracle
-    gate, unless its overflow flag is set, as it must be on the dense
-    scene."""
+    Each path runs with the launch counters at 0 and must launch the key
+    kernel's slab mode once a shard; each result equals the
+    single-device module of its contract on the card (bit for bit; the
+    global contract as a support set, its segments following the bucket
+    order) and passes the oracle gate, unless its overflow flag is set,
+    as it must be on the dense scene."""
     import torch.distributed as dist
 
     from opengpc_tpu_torch import (build_sparsematch_global_compact,
@@ -1299,11 +1350,11 @@ def phase_sharded_frame(oracle, paths, launches):
                         l_d, r_d = (torch.from_numpy(a).cuda()
                                     for a in scenes[scene])
                         key = f"n{n}/{forest}/{contract}/{scene}"
-                        # one slab-key launch an image a shard
+                        # one slab-mode launch a shard, both slabs
                         out, counts = launches.run(
                             key, lambda: mod(l_d, r_d) if n == 1
                             else _run_in_one_process(mod, l_d, r_d, n),
-                            {"fused_keys_slab": 2 * n})
+                            {"fused_keys_slab": n})
                         check(key, contract, settings, forest, scenes[scene],
                               out, counts, flag)
         finally:
@@ -1318,7 +1369,7 @@ def phase_sharded_frame(oracle, paths, launches):
         key = f"n4/defaultZeroForest/masked/{scene}"
         out, counts = launches.run(
             key, lambda: _run_in_one_process(mod, l_d, r_d, 4),
-            {"fused_keys_slab": 8})
+            {"fused_keys_slab": 4})
         check(key, "masked", settings, "defaultZeroForest", pair, out,
               counts, None)
     emit("sharded_frame", cases=len(report), launches=all_counts,
@@ -1344,10 +1395,12 @@ def phase_census(launches):
 
 
 def phase_slab_times(smi, masks):
-    """fused_keys_slab (both images of one n = 1 slab pair, the whole
-    436x1024 frame) and fused_census (one 436x1024 image) against their
-    twins, and the n = 1 sharded masked module against the single-device
-    masked module per pair at 436x1024."""
+    """The key kernel's slab mode (both slabs of the n = 1 pair, the whole
+    436x1024 frame, in one launch, on one contiguous (2, H + 28, W)
+    tensor as the sharded frame builds them) against its two plain calls,
+    and fused_census (one image at 436x1024 and at 2160x3840) against its
+    twin, each with its bound; and the n = 1 sharded masked module
+    against the single-device masked module per pair at 436x1024."""
     import torch.nn.functional as F
 
     from opengpc_tpu_torch import InferenceSettings, build_sparsematch_masked
@@ -1363,7 +1416,8 @@ def phase_slab_times(smi, masks):
     zero = masks["zero"]
     left, right = (torch.from_numpy(a).cuda()
                    for a in make_pair(H, W, TRUE_DISP))
-    sl, sr = (F.pad(t, (0, 0, PAD, PAD)) for t in (left, right))
+    slabs = F.pad(torch.stack([left, right]), (0, 0, PAD, PAD))
+    sl, sr = slabs
     times = {}
     ncand = int((_key_image_slab(sl, sr, zero, settings, 0, H)
                  < SENTINEL_BASE).sum())
@@ -1375,10 +1429,15 @@ def phase_slab_times(smi, masks):
             dim=1), 200, 20),
         2 * (H + 2 * PAD) * W + 2 * 4 * H * W,
         code_ops(2, H, W, ncand, zero.num_tests))
-    # 24 compares and 24 shift-ins a pixel
-    times["fused_census"] = with_bound(kernel_vs_plain_times(
-        lambda: fused_census(left), lambda: census5x5(left), 200, 20),
-        H * W * (1 + 4), 48 * H * W)
+    big = torch.from_numpy(structured_image(np.random.default_rng(14), 2160,
+                                            3840)).cuda()
+    for name, img, iters in (("fused_census", left, 200),
+                             ("fused_census_2160x3840", big, 50)):
+        h, w = img.shape
+        times[name] = with_bound(kernel_vs_plain_times(
+            lambda: fused_census(img), lambda: census5x5(img), iters, 10),
+            h * w * (1 + 4), int(CENSUS_OPS * h * w))
+        times[name]["shape"] = [h, w]
     emit("slab_census_times", card=smi, shape=[H, W], **times)
     sharded = build_sharded_frame_sparsematch(zero, settings, device="cuda")
     single = build_sparsematch_masked(zero, settings, device="cuda")
@@ -1393,7 +1452,8 @@ def phase_slab_times(smi, masks):
         for k in ("single_device_masked", "sharded_n1_masked",
                   "sharded_n1_masked", "single_device_masked")]
     emit("sharded_times", card=smi, shape=[H, W], **module_times)
-    return {name: dict(t, library_ms=None) for name, t in times.items()}
+    return {name: dict(t, library_ms=None) for name, t in times.items()
+            if name in KERNELS}
 
 
 def main():

@@ -8,9 +8,9 @@ forest of <= 32 tests, either mode), with the hand-written CUDA kernels of
 ``csrc/`` (fused keys, fused codes, bitonic row sort, fused match).  The
 row-form and chunk-compacted contracts have their builders, and
 ``opengpc_tpu_torch.parallel`` shards one frame's rows over a
-``torch.distributed`` group (slab key kernel).  ``ops.fused.fused_census``
-is the census kernel.  The package imports torch and numpy and never JAX;
-importing it builds and loads no kernel.
+``torch.distributed`` group (the key kernel's slab mode).
+``ops.fused.fused_census`` is the census kernel.  The package imports
+torch and numpy and never JAX; importing it builds and loads no kernel.
 
 >>> from opengpc_tpu_torch import InferenceSettings, sparsematch
 >>> supports = sparsematch(left, right, "forests/defaultZeroForest.txt")

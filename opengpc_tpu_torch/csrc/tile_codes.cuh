@@ -1,19 +1,16 @@
 // Shared tile math of the code kernels: the port's counterpart of
 // opengpc_tpu/ops/fused.py::tile_codes_and_cand, which every Pallas kernel
-// of that module and ops/fused_match.py calls.
-//
-// A CodeTile<kTileH, kTileW> lives in shared memory.  stage() copies the
-// tile's (kTileH+28) x (kTileW+28) uint8 window from a source buffer that
-// holds image rows [src_row0, src_row0 + src_rows) (the whole image, or a
-// row slab with its halo; zeros outside the buffer and the columns) and
-// box-blurs its (kTileH+26) x (kTileW+26) code-support region, zeroing by
-// image coordinates of the h-row image:
-//   smooth = floor(box3x3 / 9), zero outside 1 <= y <= h-3, 2 <= x <= w-2.
-// Then, for the pixel at tile (ty, tx) = image (y, x):
-//   code() = T <= 32 tests smooth[p+i] > smooth[p+j] - tau, MSB-first,
+// of that module and ops/fused_match.py calls.  For the pixel (y, x) of an
+// h-row, w-column image:
+//   smooth = floor(box3x3 / 9), zero outside 1 <= y <= h-3, 2 <= x <= w-2;
+//   code   = T <= 32 tests smooth[p+i] > smooth[p+j] - tau, MSB-first,
 //            accumulated in uint32 so that 32 tests wrap as JAX's int32 does;
-//   cand() = (sx^2 + sy^2 > thr^2) with C-truncating Sobel / 9 on the raw
+//   cand   = (sx^2 + sy^2 > thr^2) with C-truncating Sobel / 9 on the raw
 //            image, inside the 13-px candidate margin.
+// StripTile (below) holds a tile of it in shared memory; stage_raw copies
+// a raw window from a source buffer that holds image rows [src_row0,
+// src_row0 + src_rows), the whole image or a row slab with its halo, as
+// aligned 16-byte vectors (the census kernel stages through it too).
 // Tests arrive by value as a __grid_constant__ kernel parameter; the test
 // loop is unrolled over 32, so every field is a constant-bank operand.
 
@@ -59,83 +56,44 @@ inline bool load_tests(const void* src, int n_tests, Tests* t) {
   return true;
 }
 
-template <int kTileH, int kTileW>
-struct CodeTile {
-  static constexpr int kRawH = kTileH + 2 * kPad;
-  static constexpr int kRawW = kTileW + 2 * kPad;
-  static constexpr int kBoxH = kTileH + 2 * kHalo;
-  static constexpr int kBoxW = kTileW + 2 * kHalo;
-
-  uint8_t raw[kRawH][kRawW];     // image (y0-14 .., x0-14 ..)
-  uint8_t smooth[kBoxH][kBoxW];  // image (y0-13 .., x0-13 ..)
-
-  // Stage the tile whose first output pixel is image (y0, x0) of an h x w
-  // image, with nthreads threads; ends with a barrier.  src holds the
-  // image rows [src_row0, src_row0 + src_rows), w bytes each: the whole
-  // image (src_row0 = 0, src_rows = h) or a slab.  The caller puts a
-  // barrier between the last read of one tile and the next stage().
-  __device__ __forceinline__ void stage(const uint8_t* __restrict__ src,
-                                        int src_row0, int src_rows, int h,
-                                        int w, int y0, int x0, int tid,
-                                        int nthreads) {
-    for (int i = tid; i < kRawH * kRawW; i += nthreads) {
-      const int r = i / kRawW, c = i % kRawW;
-      const int sy = y0 + r - kPad - src_row0, gx = x0 + c - kPad;
-      raw[r][c] = (sy >= 0 && sy < src_rows && gx >= 0 && gx < w)
-                      ? src[static_cast<size_t>(sy) * w + gx] : 0;
-    }
-    __syncthreads();
-    for (int i = tid; i < kBoxH * kBoxW; i += nthreads) {
-      const int r = i / kBoxW, c = i % kBoxW;
-      const int gy = y0 + r - kHalo, gx = x0 + c - kHalo;
-      int v = 0;
-      if (gy >= 1 && gy <= h - 3 && gx >= 2 && gx <= w - 2) {
-        int s = 0;
+// Stage the kRows x kCols uint8 window whose first pixel is image (gy0,
+// gx0) into raw4, row after row (kCols % 16 == 0, gx0 % 16 == 0), without
+// a barrier.  src holds image rows [src_row0, src_row0 + src_rows), w
+// bytes each; pixels outside those rows or the w columns are zeros.  vec:
+// src rows are 16-byte aligned (w % 16 == 0 and src aligned), so a chunk
+// inside the row loads as one vector; else its bytes load one by one.
+template <int kRows, int kCols>
+__device__ __forceinline__ void stage_raw(uint4* __restrict__ raw4,
+                                          const uint8_t* __restrict__ src,
+                                          int src_row0, int src_rows, int w,
+                                          int gy0, int gx0, bool vec,
+                                          int tid, int nthreads) {
+  static_assert(kCols % 16 == 0, "whole 16-byte chunks");
+  constexpr int kChunks = kCols / 16;
+  for (int i = tid; i < kRows * kChunks; i += nthreads) {
+    const int sy = gy0 + i / kChunks - src_row0;
+    const int gx = gx0 + 16 * (i % kChunks);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (sy >= 0 && sy < src_rows) {
+      const uint8_t* row = src + static_cast<size_t>(sy) * w;
+      if (vec && gx >= 0 && gx + 16 <= w) {
+        v = *reinterpret_cast<const uint4*>(row + gx);
+      } else {
+        uint32_t b[4] = {0, 0, 0, 0};
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) s += raw[r + dy][c + dx];
-        v = s / 9;  // s >= 0: truncation is the floor
-      }
-      smooth[r][c] = static_cast<uint8_t>(v);
-    }
-    __syncthreads();
-  }
-
-  __device__ __forceinline__ uint32_t code(int ty, int tx,
-                                           const Tests& tests) const {
-    uint32_t c = 0;
-#pragma unroll
-    for (int t = 0; t < kMaxTests; ++t) {
-      if (t < tests.n) {
-        const int a = smooth[ty + kHalo + tests.iy[t]][tx + kHalo + tests.ix[t]];
-        const int b = smooth[ty + kHalo + tests.jy[t]][tx + kHalo + tests.jx[t]];
-        c = c * 2u + (a > b - tests.tau[t] ? 1u : 0u);
+        for (int k = 0; k < 16; ++k)
+          if (gx + k >= 0 && gx + k < w)
+            b[k / 4] |= static_cast<uint32_t>(row[gx + k]) << (8 * (k % 4));
+        v = make_uint4(b[0], b[1], b[2], b[3]);
       }
     }
-    return c;
+    raw4[i] = v;
   }
+}
 
-  __device__ __forceinline__ bool cand(int ty, int tx, int y, int x, int h,
-                                       int w, int thr2) const {
-    // raw row ty + kPad + dy is image row y + dy
-    auto px = [&](int dy, int dx) {
-      return static_cast<int>(raw[ty + kPad + dy][tx + kPad + dx]);
-    };
-    const int sx_num = px(-1, -1) + px(1, -1) + 2 * px(0, -1)
-                       - px(-1, 1) - 2 * px(0, 1) - px(1, 1);
-    const int sy_num = px(-1, -1) + px(-1, 1) + 2 * px(-1, 0)
-                       - px(1, -1) - 2 * px(1, 0) - px(1, 1);
-    const int sx = sx_num / 9, sy = sy_num / 9;  // C truncation, as wanted
-    return sx * sx + sy * sy > thr2 && y >= kMargin && y < h - kMargin &&
-           x >= kMargin && x < w - kMargin;
-  }
-};
-
-// StripTile: the same math for strips of 4 horizontally adjacent pixels,
-// with the blurred region held as 16-bit lanes, two pixels to a word (the
-// tile of the key, code and fused match kernels; only the slab key kernel
-// still uses CodeTile).
+// StripTile: the tile of the key, code and fused match kernels, for strips
+// of 4 horizontally adjacent pixels, with the blurred region held as
+// 16-bit lanes, two pixels to a word.
 //
 //   raw      the (kTileH+28) x (kTileW+32) uint8 window, column 0 at image
 //            x0 - 16 so that rows stage as aligned 16-byte vectors;
@@ -204,32 +162,17 @@ struct StripTile {
     return reinterpret_cast<const uint8_t*>(raw4);
   }
 
-  // Stage the tile whose first output pixel is (y0, x0) of an h x w image
-  // at src; ends with a barrier.  vec: src rows are 16-byte aligned (w %
-  // 16 == 0 and src aligned), so inner chunks load as one vector.
+  // Stage the tile whose first output pixel is (y0, x0) of an h x w image;
+  // ends with a barrier.  src holds image rows [src_row0, src_row0 +
+  // src_rows) (see stage_raw): the whole image (0, h), or a row slab with
+  // its halo, of a frame of h rows.  The box border stays in rows of that
+  // h-row image.
   __device__ __forceinline__ void stage(const uint8_t* __restrict__ src,
-                                        int h, int w, int y0, int x0,
-                                        bool vec, int tid, int nthreads) {
-    constexpr int kChunks = kRawW / 16;
-    for (int i = tid; i < kRawH * kChunks; i += nthreads) {
-      const int r = i / kChunks;
-      const int gy = y0 - kPad + r, gx = x0 - kRawOff + 16 * (i % kChunks);
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (gy >= 0 && gy < h) {
-        const uint8_t* row = src + static_cast<size_t>(gy) * w;
-        if (vec && gx >= 0 && gx + 16 <= w) {
-          v = *reinterpret_cast<const uint4*>(row + gx);
-        } else {
-          uint32_t b[4] = {0, 0, 0, 0};
-#pragma unroll
-          for (int k = 0; k < 16; ++k)
-            if (gx + k >= 0 && gx + k < w)
-              b[k / 4] |= static_cast<uint32_t>(row[gx + k]) << (8 * (k % 4));
-          v = make_uint4(b[0], b[1], b[2], b[3]);
-        }
-      }
-      raw4[i] = v;
-    }
+                                        int src_row0, int src_rows, int h,
+                                        int w, int y0, int x0, bool vec,
+                                        int tid, int nthreads) {
+    stage_raw<kRawH, kRawW>(raw4, src, src_row0, src_rows, w, y0 - kPad,
+                            x0 - kRawOff, vec, tid, nthreads);
     __syncthreads();
     // box: each task blurs 4 columns over kSegRows rows, a horizontal
     // 3-sum per raw row (two lanes a word) rolled into vertical 3-sums
@@ -286,6 +229,13 @@ struct StripTile {
     __syncthreads();
   }
 
+  // The whole h x w image at src.
+  __device__ __forceinline__ void stage(const uint8_t* __restrict__ src,
+                                        int h, int w, int y0, int x0,
+                                        bool vec, int tid, int nthreads) {
+    stage(src, 0, h, h, w, y0, x0, vec, tid, nthreads);
+  }
+
   static __device__ __forceinline__ uint32_t div9_lanes(uint32_t v) {
     return (((v & 0xffffu) * 7282u) >> 16) |
            (((v >> 16) * 7282u) & 0xffff0000u);
@@ -296,8 +246,8 @@ struct StripTile {
     return &sm[0][ty][2 * sx];
   }
 
-  // Codes of the 4 pixels of the strip at base b, MSB-first, as
-  // CodeTile::code gives them (uint32, so 32 tests wrap as JAX's int32).
+  // Codes of the 4 pixels of the strip at base b, MSB-first (uint32, so
+  // 32 tests wrap as JAX's int32).
   __device__ __forceinline__ void codes(const uint32_t* b,
                                         const StripTests& t,
                                         uint32_t code[4]) const {

@@ -53,9 +53,9 @@ from opengpc_tpu_torch.match import (MASKED_SENTINEL, SENTINEL_BASE, _bits,
                                      match_global_rows,
                                      match_global_rows_compact,
                                      resolve_masked_compact_chunks)
-from opengpc_tpu_torch.ops.fused import (_slab_rows, fused_codes,
-                                         fused_codes_pair, fused_key_image,
-                                         fused_keys_slab_into, mask_tests)
+from opengpc_tpu_torch.ops.fused import (fused_codes, fused_codes_pair,
+                                         fused_key_image,
+                                         fused_key_image_slab, mask_tests)
 from opengpc_tpu_torch.ops.fused_match import fused_sparsematch_rows
 from opengpc_tpu_torch.ops.preprocess import CANDIDATE_MARGIN, require_u8
 
@@ -133,20 +133,13 @@ def _key_image_slab(slab_l, slab_r, mask: FilterMask,
     """(sh, 2W) sentinel-packed key image of one row slab of a larger
     frame: ``slab_*`` are (sh + 28, W) uint8 slabs holding frame rows
     [y0 - 14, y0 + sh + 14) (zeros outside the frame), ``h_total`` the
-    frame's height.  Equal to rows [y0, y0 + sh) of :func:`_key_image` on
-    the whole frame.  The slab key kernel on CUDA tensors, its plain twin
-    on CPU tensors."""
-    if slab_l.shape != slab_r.shape:
-        raise ValueError(f"slab shapes differ: {tuple(slab_l.shape)} vs "
-                         f"{tuple(slab_r.shape)}")
-    sh, w = _slab_rows(slab_l, y0, h_total), slab_l.shape[1]
-    out = torch.empty((sh, 2 * w), dtype=torch.int32, device=slab_l.device)
-    thr = settings.gradient_threshold
-    fused_keys_slab_into(slab_l, out, 0, mask, thr, 0, SENTINEL_BASE, y0,
-                         h_total)
-    fused_keys_slab_into(slab_r, out, w, mask, thr, w, SENTINEL_BASE, y0,
-                         h_total)
-    return out
+    frame's height; (B, sh + 28, W) batches of such slabs give (B, sh,
+    2W).  Equal to rows [y0, y0 + sh) of :func:`_key_image` on the whole
+    frame.  One slab-mode launch of the key kernel for both on CUDA
+    tensors, its plain twin on CPU tensors."""
+    return fused_key_image_slab(slab_l, slab_r, mask,
+                                settings.gradient_threshold, SENTINEL_BASE,
+                                y0, h_total)
 
 
 def _folded_key_rows(left, right, mask: FilterMask,

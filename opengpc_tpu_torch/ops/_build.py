@@ -32,8 +32,7 @@ PTXAS_FLAGS = ("-Xptxas", "-v")
 # C entry points: (argument types, result type); "p" a pointer or the
 # stream, "i" an int
 _ENTRY_POINTS = {
-    "ogpc_fused_keys": ("pppiiiiiiiiipiiiip", "i"),
-    "ogpc_fused_keys_slab": ("ppiiiipiiiiiip", "i"),
+    "ogpc_fused_keys": ("pppiiiiiiiiiiiipiiiip", "i"),
     "ogpc_fused_codes": ("ppppppiiipiip", "i"),
     "ogpc_fused_census": ("ppiip", "i"),
     "ogpc_bitonic_sort_rows": ("ppppiip", "i"),

@@ -1,22 +1,24 @@
 """The fused code kernels: box blur, leaf codes and Sobel candidates in one
 pass, emitting the matcher's sentinel-packed sort keys of a whole image
 (``fused_keys``), of both images of a batch of pairs in one launch
-(``fused_key_image``) or of a row slab of a larger image (``fused_keys_slab``,
-the sharded frame's kernel), or the codes and candidates as two images
+(``fused_key_image``), of a row slab of a larger frame (``fused_keys_slab``)
+or of both slabs of a shard in one launch (``fused_key_image_slab``, the
+sharded frame's), or the codes and candidates as two images
 (``fused_codes``, or ``fused_codes_pair`` for both images of a pair in
 one launch); and the 5x5 census (``fused_census``).
 
-Each wrapper launches its kernel (``csrc/fused_keys.cu``,
-``csrc/fused_keys_slab.cu``, ``csrc/fused_codes.cu``,
-``csrc/fused_census.cu``; built at first use by ``ops._build``) on a CUDA
-tensor and raises on any failure; on a CPU tensor it runs its plain twin
-(``fused_keys_plain``, ``fused_keys_slab_plain``, ``fused_codes_plain``,
+Each wrapper launches its kernel (``csrc/fused_keys.cu``, whose slab mode
+makes the slab keys, ``csrc/fused_codes.cu``, ``csrc/fused_census.cu``;
+built at first use by ``ops._build``) on a CUDA tensor and raises on any
+failure; on a CPU tensor it runs its plain twin (``fused_keys_plain``,
+``fused_keys_slab_plain``, ``fused_codes_plain``,
 ``ops.census.census5x5``).  The code twins share one body, the same math
 as whole-window tensor ops, written after ``opengpc_tpu.ops.fused``'s
 ``tile_codes_and_cand`` with the image or slab as one tile; the code
 kernels share ``csrc/tile_codes.cuh``.  Each wrapper's ``launches``
-attribute counts its kernel launches, so a run can show that it went
-through the kernels.
+attribute counts its kernel launches (``fused_keys_slab.launches`` the
+key kernel's slab-mode ones), so a run can show that it went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -115,14 +117,16 @@ def fused_keys_plain(img: torch.Tensor, mask: FilterMask,
     return _keys(code, cand, pos_base, sentinel_base, pack_bits)
 
 
-def _slab_rows(slab: torch.Tensor, y0: int, h_total: int) -> int:
-    """The output rows sh of a (sh + 28, W) slab at image row ``y0`` of an
-    image of ``h_total`` rows; raises on a slab that does not fit."""
+def _slab_rows(slab: torch.Tensor, y0: int, h_total: int,
+               batch: bool = False) -> int:
+    """The output rows sh of a (sh + 28, W) slab (or, with ``batch``, a
+    (B, sh + 28, W) batch of them) at image row ``y0`` of an image of
+    ``h_total`` rows; raises on a slab that does not fit."""
     require_u8(slab)
-    if slab.dim() != 2:
+    if slab.dim() not in ((2, 3) if batch else (2,)):
         raise ValueError(f"expected an (sh + {2 * PAD}, W) slab, got "
                          f"{tuple(slab.shape)}")
-    sh = slab.shape[0] - 2 * PAD
+    sh = slab.shape[-2] - 2 * PAD
     if sh < 1 or not 0 <= y0 <= h_total - sh:
         raise ValueError(f"a slab of {tuple(slab.shape)} (halo {PAD} rows "
                          f"each side) at row {y0} does not fit an image of "
@@ -137,9 +141,10 @@ def fused_keys_slab_plain(slab: torch.Tensor, mask: FilterMask,
     """Plain-PyTorch twin of the slab key kernel: the (sh, W) keys of a
     (sh + 28, W) uint8 slab holding image rows [y0 - 14, y0 + sh + 14) of
     an image of ``h_total`` rows (zeros outside the image), equal to rows
-    [y0, y0 + sh) of ``fused_keys_plain`` on the whole image.  The slab
+    [y0, y0 + sh) of ``fused_keys_plain`` on the whole image (a (B, sh +
+    28, W) batch of slabs at the same rows gives (B, sh, W)).  The slab
     carries its halo rows, so only the columns are zero-padded."""
-    _slab_rows(slab, y0, h_total)
+    _slab_rows(slab, y0, h_total, batch=True)
     x32 = F.pad(slab.to(torch.int32), (PAD, PAD))
     code, cand = _codes_body(x32, int(y0), int(h_total), mask,
                              gradient_threshold)
@@ -163,28 +168,33 @@ def _check_args(mask: FilterMask, pack_bits: int) -> None:
 
 
 def _launch(sides, out: torch.Tensor, mask: FilterMask,
-            gradient_threshold: int, sentinel_base: int,
-            pack_bits: int) -> None:
+            gradient_threshold: int, sentinel_base: int, pack_bits: int,
+            slab=None) -> None:
     """One launch of the key kernel for one or two ``sides``, each a
-    (B, H, W) CUDA batch, its first column in the (B, H, Wout) int32
+    (B, R, W) CUDA batch, its first column in the (B, rows, Wout) int32
     ``out`` and its position base; on the current stream, without
-    synchronizing."""
+    synchronizing.  Whole images (``slab`` None, R = rows) count in
+    ``fused_keys.launches``; slab mode (``slab = (y0, h_total)``: each
+    image holds frame rows [y0 - 14, y0 + rows + 14) of an h_total-row
+    frame, R = rows + 28) in ``fused_keys_slab.launches``."""
     from opengpc_tpu_torch.ops._build import check_launch, load_library
 
+    name = "fused_keys_slab" if slab else "fused_keys"
     imgs = [img for img, _, _ in sides]
     if not all(img.is_cuda for img in imgs):
-        raise ValueError(f"fused_keys: no kernel for {imgs[0].device} "
-                         "tensors")
+        raise ValueError(f"{name}: no kernel for {imgs[0].device} tensors")
     if not (all(img.is_contiguous() for img in imgs) and out.is_contiguous()):
-        raise ValueError("fused_keys: images and output must be contiguous")
+        raise ValueError(f"{name}: images and output must be contiguous")
     if out.dtype != torch.int32 or out.dim() != 3:
-        raise ValueError("fused_keys: output must be a (B, H, Wout) int32 "
+        raise ValueError(f"{name}: output must be a (B, rows, Wout) int32 "
                          "tensor")
-    b, h, w = imgs[0].shape
+    b, rows = out.shape[:2]
+    y0, h_total = slab if slab else (0, rows)
+    halo = PAD if slab else 0
+    w = imgs[0].shape[2]
     for img, col, _ in sides:
-        if (img.shape != imgs[0].shape or out.shape[:2] != (b, h)
-                or col + w > out.shape[2]):
-            raise ValueError(f"fused_keys: output {tuple(out.shape)} cannot "
+        if img.shape != (b, rows + 2 * halo, w) or col + w > out.shape[2]:
+            raise ValueError(f"{name}: output {tuple(out.shape)} cannot "
                              f"hold {tuple(img.shape)} at column {col}")
     img0, col0, pos0 = sides[0]
     img1, col1, pos1 = sides[1] if len(sides) > 1 else (None, 0, 0)
@@ -194,38 +204,37 @@ def _launch(sides, out: torch.Tensor, mask: FilterMask,
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ogpc_fused_keys(
             img0.data_ptr(), img1.data_ptr() if img1 is not None else None,
-            out.data_ptr(), b, h, w, out.shape[2], out.shape[1] * out.shape[2],
-            col0, col1, int(pos0), int(pos1), tests.ctypes.data,
-            tests.shape[0], int(gradient_threshold) ** 2, int(sentinel_base),
-            int(pack_bits), stream)
-    check_launch("fused_keys", rc)
-    fused_keys.launches += 1
+            out.data_ptr(), b, rows, w, int(y0), int(h_total), halo,
+            out.shape[2], rows * out.shape[2], col0, col1, int(pos0),
+            int(pos1), tests.ctypes.data, tests.shape[0],
+            int(gradient_threshold) ** 2, int(sentinel_base), int(pack_bits),
+            stream)
+    check_launch(name, rc)
+    (fused_keys_slab if slab else fused_keys).launches += 1
 
 
-def _check_batch(img: torch.Tensor, out: torch.Tensor) -> None:
-    require_u8(img)
-    if img.dim() != 3:
-        raise ValueError(f"expected a (B, H, W) batch, got {tuple(img.shape)}")
-    if out.device != img.device:
-        raise ValueError(f"fused_keys: image on {img.device}, output on "
-                         f"{out.device}")
-
-
-def fused_keys_into(img: torch.Tensor, out: torch.Tensor, col_offset: int,
-                    mask: FilterMask, gradient_threshold: int, pos_base: int,
-                    sentinel_base: int, pack_bits: int = 0) -> None:
-    """Write the keys of a (B, H, W) uint8 batch into columns
-    [col_offset, col_offset + W) of the (B, H, Wout) int32 ``out``: the
-    kernel for a CUDA tensor, the plain twin for a CPU one."""
-    _check_batch(img, out)
-    _check_args(mask, pack_bits)
-    if img.device.type == "cpu":
-        w = img.shape[-1]
-        out[..., col_offset:col_offset + w] = fused_keys_plain(
-            img, mask, gradient_threshold, pos_base, sentinel_base, pack_bits)
-        return
-    _launch([(img.contiguous(), col_offset, pos_base)], out, mask,
-            gradient_threshold, sentinel_base, pack_bits)
+def _pair_keys(lefts: torch.Tensor, rights: torch.Tensor, mask: FilterMask,
+               gradient_threshold: int, sentinel_base: int, slab=None):
+    """The key images of two (B, R, W) uint8 batches of one shape on one
+    device, (B, rows, 2W) int32: the left keys (positions x) in columns
+    [0, W), the right keys (positions W + x) in [W, 2W).  One launch of
+    the key kernel (slab mode for ``slab = (y0, h_total)``, rows = R - 28)
+    on CUDA tensors; the plain twin of each side on CPU tensors."""
+    b, r, w = lefts.shape
+    rows = r - 2 * PAD if slab else r
+    out = torch.empty((b, rows, 2 * w), dtype=torch.int32,
+                      device=lefts.device)
+    if lefts.device.type == "cpu":
+        for img, col in ((lefts, 0), (rights, w)):
+            out[..., col:col + w] = (
+                fused_keys_slab_plain(img, mask, gradient_threshold, col,
+                                      sentinel_base, *slab) if slab else
+                fused_keys_plain(img, mask, gradient_threshold, col,
+                                 sentinel_base))
+        return out
+    _launch([(lefts.contiguous(), 0, 0), (rights.contiguous(), w, w)], out,
+            mask, gradient_threshold, sentinel_base, 0, slab)
+    return out
 
 
 def fused_key_image(lefts: torch.Tensor, rights: torch.Tensor,
@@ -245,16 +254,7 @@ def fused_key_image(lefts: torch.Tensor, rights: torch.Tensor,
                          f"on one device, got {tuple(lefts.shape)} on "
                          f"{lefts.device} and {tuple(rights.shape)} on "
                          f"{rights.device}")
-    b, h, w = lefts.shape
-    out = torch.empty((b, h, 2 * w), dtype=torch.int32, device=lefts.device)
-    if lefts.device.type == "cpu":
-        for img, col in ((lefts, 0), (rights, w)):
-            out[..., col:col + w] = fused_keys_plain(
-                img, mask, gradient_threshold, col, sentinel_base)
-        return out
-    _launch([(lefts.contiguous(), 0, 0), (rights.contiguous(), w, w)], out,
-            mask, gradient_threshold, sentinel_base, 0)
-    return out
+    return _pair_keys(lefts, rights, mask, gradient_threshold, sentinel_base)
 
 
 def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,
@@ -268,14 +268,19 @@ def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,
     concatenated (H, 2W) key image has unique per-row sentinels.
     ``pack_bits > 0`` emits candidates already pos-packed for the
     single-operand sort (``match._pack_keypos``'s layout; the caller must
-    satisfy ``match._pack_ok``)."""
+    satisfy ``match._pack_ok``).  One side of the key kernel's launch on a
+    CUDA tensor, ``fused_keys_plain`` on a CPU one."""
     require_u8(img)
     if img.dim() != 2:
         raise ValueError(f"expected an (H, W) image, got {tuple(img.shape)}")
+    _check_args(mask, pack_bits)
+    if img.device.type == "cpu":
+        return fused_keys_plain(img, mask, gradient_threshold, pos_base,
+                                sentinel_base, pack_bits)
     out = torch.empty((1,) + tuple(img.shape), dtype=torch.int32,
                       device=img.device)
-    fused_keys_into(img[None], out, 0, mask, gradient_threshold, pos_base,
-                    sentinel_base, pack_bits)
+    _launch([(img.contiguous()[None], 0, pos_base)], out, mask,
+            gradient_threshold, sentinel_base, pack_bits)
     return out[0]
 
 
@@ -365,9 +370,9 @@ def fused_keys_slab_into(slab: torch.Tensor, out: torch.Tensor,
                          sentinel_base: int, y0: int, h_total: int) -> None:
     """Write the keys of a (sh + 28, W) uint8 slab (see
     :func:`fused_keys_slab_plain`) into columns [col_offset, col_offset +
-    W) of the (sh, Wout) int32 ``out``: the kernel of
-    ``csrc/fused_keys_slab.cu`` for a CUDA tensor, the plain twin for a
-    CPU one."""
+    W) of the (sh, Wout) int32 ``out``: one side of the key kernel's
+    launch in slab mode (``csrc/fused_keys.cu``) for a CUDA tensor, the
+    plain twin for a CPU one."""
     sh = _slab_rows(slab, y0, h_total)
     check_mask(mask)
     w = slab.shape[1]
@@ -384,24 +389,8 @@ def fused_keys_slab_into(slab: torch.Tensor, out: torch.Tensor,
             slab, mask, gradient_threshold, pos_base, sentinel_base, y0,
             h_total)
         return
-    if not slab.is_cuda:
-        raise ValueError(f"fused_keys_slab: no kernel for {slab.device} "
-                         "tensors")
-    if not out.is_contiguous():
-        raise ValueError("fused_keys_slab: output must be contiguous")
-    from opengpc_tpu_torch.ops._build import check_launch, load_library
-
-    slab = slab.contiguous()
-    tests = _tests_array(mask)
-    lib = load_library()
-    with torch.cuda.device(slab.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.ogpc_fused_keys_slab(
-            slab.data_ptr(), out.data_ptr(), sh, w, out.shape[1], col_offset,
-            tests.ctypes.data, tests.shape[0], int(gradient_threshold) ** 2,
-            int(pos_base), int(sentinel_base), int(y0), int(h_total), stream)
-    check_launch("fused_keys_slab", rc)
-    fused_keys_slab.launches += 1
+    _launch([(slab.contiguous()[None], col_offset, pos_base)], out[None],
+            mask, gradient_threshold, sentinel_base, 0, (y0, h_total))
 
 
 def fused_keys_slab(slab: torch.Tensor, mask: FilterMask,
@@ -423,6 +412,33 @@ def fused_keys_slab(slab: torch.Tensor, mask: FilterMask,
 
 
 fused_keys_slab.launches = 0
+
+
+def fused_key_image_slab(lefts: torch.Tensor, rights: torch.Tensor,
+                         mask: FilterMask, gradient_threshold: int,
+                         sentinel_base: int, y0: int,
+                         h_total: int) -> torch.Tensor:
+    """The (sh, 2W) key image of one row slab of a frame, both images at
+    once: ``lefts`` and ``rights`` are (sh + 28, W) uint8 slabs (or (B,
+    sh + 28, W) batches of slabs at the same rows, giving (B, sh, 2W))
+    holding frame rows [y0 - 14, y0 + sh + 14) of an ``h_total``-row
+    frame, zeros outside it.  The left keys (positions x) go to columns
+    [0, W), the right keys (positions W + x) to [W, 2W): rows [y0, y0 +
+    sh) of :func:`fused_key_image` on the whole frame.  One slab-mode
+    launch of the key kernel for all of them on CUDA tensors (counted in
+    ``fused_keys_slab.launches``); the plain twin of each side on CPU
+    tensors."""
+    if lefts.shape != rights.shape or lefts.device != rights.device:
+        raise ValueError(f"slab shapes differ: {tuple(lefts.shape)} on "
+                         f"{lefts.device} vs {tuple(rights.shape)} on "
+                         f"{rights.device}")
+    _slab_rows(lefts, y0, h_total, batch=True)
+    require_u8(rights)
+    check_mask(mask)
+    batch = (-1,) + tuple(lefts.shape[-2:])
+    keys = _pair_keys(lefts.reshape(batch), rights.reshape(batch), mask,
+                      gradient_threshold, sentinel_base, (y0, h_total))
+    return keys.reshape(lefts.shape[:-2] + keys.shape[-2:])
 
 
 def fused_census(img: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,10 @@
 One (H, W) pair's rows are split over the ranks of a process group, the
 multi-device form of the reference's row-partitioned ``parFor``.  Each rank
 holds rows [rank * sh, (rank + 1) * sh) of both images, swaps PAD = 14 halo
-rows with its neighbours, builds its slab's keys with the slab key kernel
-(``ops.fused.fused_keys_slab``, box border and candidate margin in frame
-rows) and returns its row block of the whole-frame result.  The four
+rows with its neighbours, builds both slabs' keys with one slab-mode launch
+of the key kernel (``ops.fused.fused_key_image_slab``, box border and
+candidate margin in frame rows) and returns its row block of the
+whole-frame result.  The four
 contracts of ``opengpc_tpu.parallel.build_sharded_frame_sparsematch``:
 
 * ``"masked"`` and ``"rows"``: epipolar rows are independent, so the only
@@ -104,7 +105,8 @@ def gather_blocks(outs):
 
 def _slab_keys(mod, both, top, bottom, y0: int, h_total: int):
     """Stage 1: the (sh, 2W) key image of a rank's (2, sh, W) left and
-    right rows with their (2, PAD, W) top and bottom halos."""
+    right rows with their (2, PAD, W) top and bottom halos: both (sh +
+    28, W) slabs of one contiguous tensor, one kernel launch."""
     slabs = torch.cat([top, both, bottom], dim=1)
     return _key_image_slab(slabs[0], slabs[1], mod.mask, mod.settings, y0,
                            h_total)

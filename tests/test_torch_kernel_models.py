@@ -1,18 +1,24 @@
-"""numpy models of two pieces of the CUDA kernels' arithmetic that the CPU
+"""numpy models of pieces of the CUDA kernels' arithmetic that the CPU
 cannot run: ``StripTile``'s tests on two 16-bit lanes a word with their
 MSB-first code assembly (``csrc/tile_codes.cuh``, which the key, code and
-fused match kernels share), and the fused match kernel's neighbour
-exchange in detection (``csrc/fused_match.cu``).  Each model is held
-bit for bit against the plain PyTorch code the kernels are compared with
-on the card."""
+fused match kernels share), the source-window staging that gives the key
+kernel its slab mode (``stage_raw``), the census kernel's two-lane
+compares and byte assembly (``csrc/fused_census.cu``), and the fused
+match kernel's neighbour exchange in detection (``csrc/fused_match.cu``).
+Each model is held bit for bit against the plain PyTorch code the kernels
+are compared with on the card, the census also against the JAX package's
+Pallas kernel in interpret mode."""
 
 import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from opengpc_tpu.ops import fused as jfused
+
 from opengpc_tpu_torch.forest import filter_mask_from_numpy
-from opengpc_tpu_torch.match import _detect_pairs_packed
+from opengpc_tpu_torch.match import SENTINEL_BASE, _detect_pairs_packed
+from opengpc_tpu_torch.ops.census import census5x5
 from opengpc_tpu_torch.ops import codes as tcodes
 from opengpc_tpu_torch.ops import fused as tfused
 from opengpc_tpu_torch.ops import preprocess as tpre
@@ -92,6 +98,161 @@ def test_strip_tile_two_lane_codes_equal_plain(n_tests):
     assert len(np.unique(model)) > 1
     if n_tests == 32:
         assert (model < 0).any()
+
+
+def stage_raw(src, src_row0, src_rows, w, gy0, gx0, rows, cols):
+    """``stage_raw`` of ``csrc/tile_codes.cuh``: the rows x cols uint8
+    window whose first pixel is image (gy0, gx0), read from ``src``, which
+    holds image rows [src_row0, src_row0 + src_rows) of w bytes each;
+    zeros outside those rows and the w columns."""
+    sy = gy0 + np.arange(rows)[:, None] - src_row0
+    gx = gx0 + np.arange(cols)[None, :]
+    ok = (sy >= 0) & (sy < src_rows) & (gx >= 0) & (gx < w)
+    flat = np.ascontiguousarray(src).reshape(-1)
+    idx = np.clip(sy, 0, src_rows - 1) * w + np.clip(gx, 0, w - 1)
+    return np.where(ok, flat[idx], 0).astype(np.uint8)
+
+
+PAD = tfused.PAD
+TILE_H = 32  # csrc/fused_keys.cu's kTileH
+
+
+def keys_by_tiles(src, y0, rows, halo, h_total, mask, thr, pos_base):
+    """The key kernel's output rows [y0, y0 + rows) of an h_total-row
+    frame, tile row by tile row as its blocks make them: each 32-row tile
+    stages its (60, W + 32) raw window (column 0 at x = -16) from the
+    source window, image rows [y0 - halo, y0 + rows + halo), and takes the
+    box border and candidate margin against h_total.  A tile spans the
+    whole width here, so the columns' borders are the image's."""
+    w = src.shape[1]
+    cols = -(-(w + 32) // 16) * 16
+    out = []
+    for r0 in range(0, rows, TILE_H):
+        raw = stage_raw(src, y0 - halo, rows + 2 * halo, w, y0 + r0 - PAD,
+                        -16, TILE_H + 2 * PAD, cols)
+        x32 = torch.from_numpy(raw[:, 16 - PAD:16 + w + PAD].astype(np.int32))
+        code, cand = tfused._codes_body(x32, y0 + r0, h_total, mask, thr)
+        keys = tfused._keys(code, cand, pos_base, SENTINEL_BASE)
+        out.append(keys[:min(TILE_H, rows - r0)])
+    return torch.cat(out)
+
+
+@pytest.mark.parametrize("shard", ["top", "middle", "bottom"])
+@pytest.mark.parametrize("forest", ["zero", "t32"])
+def test_slab_source_window_gives_whole_frame_keys(shard, forest):
+    """Staged from a slab's source window (src_row0 = y0 - 14, src_rows =
+    sh + 28), with the box border and the margin in frame rows, a shard's
+    keys are the whole frame's rows [y0, y0 + sh), at a shard height that
+    is not a multiple of the 32-row tile (the last tile reads zero rows
+    past the slab, for rows it does not write); the whole image staged
+    through the same window (src_row0 = 0, src_rows = h) gives the whole
+    frame's keys."""
+    from test_torch_flat import masks
+
+    _, mask = masks(forest)
+    sh, n, w = 45, 3, 70
+    h = sh * n
+    img = structured_image(np.random.default_rng(7), h, w)
+    y0 = {"top": 0, "middle": sh, "bottom": 2 * sh}[shard]
+    whole = tfused.fused_keys_plain(torch.from_numpy(img), mask, 5, w,
+                                    SENTINEL_BASE)
+    slab = np.pad(img, ((PAD, PAD), (0, 0)))[y0:y0 + sh + 2 * PAD]
+    got = keys_by_tiles(slab, y0, sh, PAD, h, mask, 5, w)
+    assert torch.equal(got, whole[y0:y0 + sh])
+    assert torch.equal(got, tfused.fused_keys_slab_plain(
+        torch.from_numpy(slab), mask, 5, w, SENTINEL_BASE, y0, h))
+    assert (got < SENTINEL_BASE).any()
+    if shard == "top":
+        assert torch.equal(keys_by_tiles(img, 0, h, 0, h, mask, 5, w), whole)
+
+
+def byte_perm(x, y, s):
+    """CUDA's ``__byte_perm(x, y, s)`` for selector nibbles 0-7: byte n of
+    the result is byte (s >> 4n) & 7 of the 8 bytes of (y:x)."""
+    src = [(x >> (8 * k)) & 0xFF for k in range(4)] + \
+          [(y >> (8 * k)) & 0xFF for k in range(4)]
+    return sum(src[(s >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def census_two_lane(img):
+    """The census codes as ``csrc/fused_census.cu`` makes them: a strip of
+    4 pixels at x reads raw bytes x-4 .. x+7 of each row (zeros outside the
+    image) as three words, widens them into even words e[j] of columns
+    (x-2+2j, x-1+2j) by byte permutes and odd words o[j] of (x-1+2j, x+2j)
+    by funnel shifts; neighbour i of the pixel pair q is one word, and the
+    compare ``A + (2^k - 1 in both lanes) - B`` puts nb > centre in bit k
+    = 8 + i % 8 of each lane, merged into accumulator i / 8; two byte
+    permutes gather a pixel's three high bytes into its code.  Asserts the
+    lane ranges that make the compare exact and the zero bytes the
+    assembly relies on."""
+    h, w = img.shape
+    ns = -(-w // 4)
+    raw = np.zeros((h + 4, 4 * ns + 8), np.int64)
+    raw[2:2 + h, 4:4 + w] = img
+    words = (raw[:, 0::4] | raw[:, 1::4] << 8 | raw[:, 2::4] << 16
+             | raw[:, 3::4] << 24)  # word j: image columns 4j-4 .. 4j-1
+    r0, r1, r2 = words[:, :ns], words[:, 1:ns + 1], words[:, 2:ns + 2]
+    e = [byte_perm(r0, 0, 0x4342), byte_perm(r1, 0, 0x4140),
+         byte_perm(r1, 0, 0x4342), byte_perm(r2, 0, 0x4140)]
+    o = [((e[j] >> 16) | (e[j + 1] << 16)) & 0xFFFFFFFF for j in range(3)]
+
+    def word(dy, dx, q):  # raw row y + 2 + dy for image row y
+        lanes = o[q + (dx + 1) // 2] if dx % 2 else e[q + (dx + 2) // 2]
+        return lanes[2 + dy:2 + dy + h]
+
+    acc = np.zeros((3, 2, h, ns), np.int64)
+    for q in range(2):
+        centre = word(0, 0, q)
+        i = 0
+        for px in range(-2, 3):
+            for py in range(-2, 3):
+                if px == 0 and py == 0:
+                    continue
+                k = 8 + i % 8
+                bit = 0x10001 << k
+                r = (word(py, px, q) + (bit - 0x10001) - centre) & 0xFFFFFFFF
+                for lane in (r & 0xFFFF, r >> 16):
+                    assert (1 << k) - 256 <= lane.min()
+                    assert lane.max() <= (1 << k) + 254
+                acc[i // 8, q] |= r & bit
+                i += 1
+    assert not (acc & 0x00FF00FF).any()
+    code = np.zeros((h, 4 * ns), np.int64)
+    for q in range(2):
+        a0, a1, a2 = acc[:, q]
+        code[:, 2 * q::4] = byte_perm(byte_perm(a0, a1, 0x0051), a2, 0x2510)
+        code[:, 2 * q + 1::4] = byte_perm(byte_perm(a0, a1, 0x0073), a2,
+                                          0x2710)
+    ys, xs = np.mgrid[:h, :w]
+    valid = (ys >= 2) & (ys <= h - 4) & (xs >= 2) & (xs <= w - 3)
+    return np.where(valid, code[:, :w], 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind, shape", [
+    ("random", (37, 130)), ("random", (61, 97)), ("random", (5, 6)),
+    ("random", (12, 13)), ("extremes", (40, 71)), ("constant", (33, 50)),
+    ("constant_max", (20, 34)), ("structured", (48, 64))])
+def test_census_two_lane_form_equals_plain_and_pallas(kind, shape):
+    """The census kernel's two-lane compares and byte assembly equal
+    ``census5x5`` (its plain twin) and the JAX package's ``fused_census``
+    (Pallas, interpret mode) on uniform random images, images of only 0
+    and 255 (the lanes' extreme values), constant images (no neighbour
+    brighter: all codes 0) and a structured image, at W % 4 = 0-3, W <
+    16 and h <= 5."""
+    h, w = shape
+    rng = np.random.default_rng(h * 1000 + w)
+    img = {"random": lambda: rng.integers(0, 256, shape),
+           "extremes": lambda: rng.choice([0, 255], shape),
+           "constant": lambda: np.full(shape, 137),
+           "constant_max": lambda: np.full(shape, 255),
+           "structured": lambda: structured_image(rng, h, w)}[kind]()
+    img = img.astype(np.uint8)
+    model = census_two_lane(img)
+    np.testing.assert_array_equal(model, census5x5(torch.from_numpy(img)))
+    np.testing.assert_array_equal(
+        model, np.asarray(jfused.fused_census(img, interpret=True)))
+    assert model.any() == (kind not in ("constant", "constant_max")
+                           and h > 5)
 
 
 LANES = 16  # csrc/fused_match.cu's kLanes

@@ -128,17 +128,20 @@ def test_fused_keys_plain_matches_jnp_key_build(shape):
 
 
 def test_fused_keys_batch_and_columns_equal_single_images():
+    """Each side of a batch of pairs, in its columns of the one-launch key
+    image, equals the single-image wrapper at that side's positions."""
     rng = np.random.default_rng(11)
-    imgs = torch.from_numpy(np.stack([structured_image(rng, 60, 90)
-                                      for _ in range(3)]))
+    lefts, imgs = (torch.from_numpy(np.stack([structured_image(rng, 60, 90)
+                                              for _ in range(3)]))
+                   for _ in range(2))
     _, tm = masks("defaultZeroForest.txt")
-    out = torch.zeros((3, 60, 180), dtype=torch.int32)
-    tfused.fused_keys_into(imgs, out, 90, tm, THR, 90, SENTINEL_BASE)
+    out = tfused.fused_key_image(lefts, imgs, tm, THR, SENTINEL_BASE)
     for i in range(3):
         single = tfused.fused_keys(imgs[i], tm, THR, 90, SENTINEL_BASE)
         assert single.shape == (60, 90) and single.dtype == torch.int32
         assert torch.equal(out[i, :, 90:], single)
-    assert not out[:, :, :90].any()
+        assert torch.equal(out[i, :, :90], tfused.fused_keys(
+            lefts[i], tm, THR, 0, SENTINEL_BASE))
 
 
 @pytest.mark.parametrize("kwargs, match", [
@@ -162,9 +165,10 @@ def test_fused_keys_rejects_out_of_patch_offsets_and_device_mismatch():
     img = torch.zeros((40, 40), dtype=torch.uint8)
     with pytest.raises(ValueError, match="offsets"):
         tfused.fused_keys(img, bad, THR, 0, SENTINEL_BASE)
-    out = torch.empty((1, 40, 40), dtype=torch.int32, device="meta")
+    out = torch.empty((12, 40), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="output on"):
-        tfused.fused_keys_into(img[None], out, 0, tm, THR, 0, SENTINEL_BASE)
+        tfused.fused_keys_slab_into(img, out, 0, tm, THR, 0, SENTINEL_BASE,
+                                    0, 12)
     with pytest.raises(ValueError, match="no kernel"):
         tfused.fused_keys(img.to("meta"), tm, THR, 0, SENTINEL_BASE)
 

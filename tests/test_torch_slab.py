@@ -55,6 +55,36 @@ def test_slab_twin_matches_pallas_and_jnp(name, shard):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("shard", [0, 1, 2])
+def test_key_image_slab_pair_matches_jnp(shard):
+    """``_key_image_slab`` on the two slabs of one contiguous (2, sh + 28,
+    W) tensor, as ``parallel._slab_keys`` builds them (one slab-mode launch
+    on the card), and on (B, sh + 28, W) batches of left and right slabs,
+    equals JAX's ``_key_image_jnp_slab`` for the top, middle and bottom
+    shards."""
+    jm, tm = masks("tau")
+    rng = np.random.default_rng(40 + shard)
+    y0 = shard * SH
+    slabs = np.stack([slab_of(structured_image(rng, SH * N, W), y0, SH)
+                      for _ in range(4)])
+    settings = pt.InferenceSettings(gradient_threshold=THR)
+    pair = torch.from_numpy(slabs[:2])
+    before = tfused.fused_keys_slab.launches
+    got = tinfer._key_image_slab(pair[0], pair[1], tm, settings, y0, SH * N)
+    want = jinfer._key_image_jnp_slab(slabs[0], slabs[1], jm, settings, y0,
+                                      SH * N)
+    assert got.shape == (SH, 2 * W) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    lefts, rights = (torch.from_numpy(slabs[k::2]) for k in (0, 1))
+    batch = tinfer._key_image_slab(lefts, rights, tm, settings, y0, SH * N)
+    assert batch.shape == (2, SH, 2 * W)
+    for i in range(2):
+        np.testing.assert_array_equal(batch[i].numpy(), np.asarray(
+            jinfer._key_image_jnp_slab(slabs[2 * i], slabs[2 * i + 1], jm,
+                                       settings, y0, SH * N)))
+    assert tfused.fused_keys_slab.launches == before == 0
+
+
 @pytest.mark.parametrize("n, sh", [(1, 50), (2, 33), (4, 27), (8, 14)])
 def test_slabs_join_to_the_whole_frame(n, sh):
     """Every shard's keys, joined, equal the whole frame's: top and bottom
