@@ -14,21 +14,26 @@ epipolar route, the global-rows route at the library's default settings,
 and four cases of the flat route; the selectable variants (fused match,
 bitonic sort) and ``extract_descriptors``; the row-sharded single frame
 (every contract, n = 1 over a one-rank NCCL process group and n = 2, 4
-in one process) and one census call.  Each path runs with every launch
-counter at 0 and is read right after, so the run shows which kernels it
-went through.  Supports are checked against the native oracle
-(``cpp/build/oracle``), the CPU pipeline or the single-device module and,
-where the mode allows, the true disparity.  Last it times the kernels
-against their twins (the bitonic sort also against ``torch.sort`` on the
-same rows, in turns), each beside its bound, the key kernel at B = 1 and
-4 on the dense and sparse pairs and at 2160x3840, the routes per pair
-and the sharded module against the single-device one with CUDA events
-and ``torch.profiler``.  Every phase prints one JSON line; the last line
+in one process) and one census call; the one-call on PNG paths, the
+native host decode against the numpy one, the pyramid (``levels`` 2, 3
+and 5, the flat fallback, the batched fold, the compact pyramid) and
+``build_stereomatch``.  Each path runs with every launch counter at 0
+and is read right after, so the run shows which kernels it went through.
+Supports are checked against the native oracle (``cpp/build/oracle``;
+level by level on downscaled images for the pyramid), the CPU pipeline
+or the single-device module and, where the mode allows, the true
+disparity.  Last it times the kernels against their twins (the bitonic
+sort also against ``torch.sort`` on the same rows, in turns), each
+beside its bound, the key kernel at B = 1 and 4 on the dense and sparse
+pairs and at 2160x3840, the routes per pair, the sharded module against
+the single-device one and the one-call module at levels 1-3 with CUDA
+events and ``torch.profiler``.  Every phase prints one JSON line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits non-zero before doing
 anything.
 """
 
+import hashlib
 import json
 import os
 import subprocess
@@ -53,7 +58,12 @@ KERNEL_SHAPES = ((436, 1024), (37, 130), (129, 1023), (1080, 1920),
 # that are no multiple of a block's rows (37, 129, 437)
 MATCH_SHAPES = ((37, 100), (129, 130), (437, 500), (436, 1023), (436, 1024),
                 (1080, 1920), (129, 4096), (37, 8192))
-PAIR_SHAPES = ((436, 1024), (37, 130), (129, 1023))  # W % 4 = 0, 2, 3
+# the pyramid's level shapes: 437x1023 and 436x1024 halved down to 27x64
+# (the last inside the candidate margin), 2160x3840 halved twice
+LEVEL_SHAPES = ((437, 1023), (218, 512), (218, 511), (109, 256), (109, 255),
+                (54, 128), (27, 64), (1080, 1920), (540, 960))
+# W % 4 = 0, 2, 3, and the level shapes
+PAIR_SHAPES = ((436, 1024), (37, 130), (129, 1023)) + LEVEL_SHAPES
 KERNELS = {  # name -> (wrapper module, source, the TPU kernel it replaces)
     "fused_keys": ("opengpc_tpu_torch.ops.fused",
                    "opengpc_tpu_torch/csrc/fused_keys.cu",
@@ -139,8 +149,13 @@ def network_ops(rows, n):
     return 5 * rows * n * lg * (lg + 1) // 4
 
 
+_START = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase's JSON line, with the seconds since the script started."""
+    print(json.dumps({"phase": phase, **fields,
+                      "t_s": time.perf_counter() - _START}), flush=True)
 
 
 def smi_line():
@@ -252,6 +267,16 @@ def patch_image(rng, h, w):
     return np.kron(levels, np.ones((16, 16), np.uint8))[:h, :w].copy()
 
 
+def median_ms(fn, n):
+    """Median host-clock ms of ``n`` calls of ``fn``."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(out))
+
+
 def cuda_ms(fn, iters):
     """Mean device ms per call of ``fn`` over ``iters`` calls (events)."""
     fn()
@@ -271,9 +296,12 @@ def device_profile(fn, iters, tries=3):
     per call, device ms per call summed over kernels, the device busy
     share, and the kernels by device time (us per call).  Every call
     launches the same kernels, so a kernel counted a fractional number of
-    times a call means the profiler lost events: the window is taken
-    again, up to ``tries`` times, and ``lost_windows`` counts the lost
-    ones (``whole`` is false when every try lost some)."""
+    times a call means the profiler lost events (``whole`` false).  A lost
+    event or two leave a kernel's count within 10% of a whole number of
+    launches a call; its time a call is then its mean launch's times that
+    number, still the call's (``usable``).  Most events lost, or none
+    recorded, is not usable: the window is taken again, up to ``tries``
+    times.  ``lost_windows`` counts the windows that lost events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -287,31 +315,49 @@ def device_profile(fn, iters, tries=3):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-        kernels, whole = {}, True
+        kernels, whole, usable = {}, True, True
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", 0)
             if e.device_type == DeviceType.CUDA and us > 0:
-                kernels[e.key] = (us / iters, e.count / iters)
+                n = e.count / iters
+                r = round(n)
                 whole = whole and e.count % iters == 0
-        if whole:
+                usable = usable and r >= 1 and abs(n - r) <= 0.1 * r
+                kernels[e.key] = (us / e.count * r if r else us / iters, n)
+        whole, usable = whole and bool(kernels), usable and bool(kernels)
+        if usable:
             break
     device_ms = sum(us for us, _ in kernels.values()) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms,
                 kernels=[[k[:70], us, n] for k, (us, n) in top[:12]],
-                whole=whole, lost_windows=lost + (not whole))
+                whole=whole, usable=usable, lost_windows=lost + (not whole))
 
 
 def kernel_profile(fn, iters):
-    """``device_profile`` for a time the kernels line or PERF.md reports:
-    the phase fails when every window lost kernel events."""
-    prof = device_profile(fn, iters)
-    if not prof["whole"]:
-        raise SystemExit(f"the profiler lost kernel events in "
-                         f"{prof['lost_windows']} windows: "
-                         f"{prof['kernels'][:3]}")
+    """``device_profile`` for a time the kernels line or PERF.md reports,
+    with up to 5 windows.  When the last is not usable its ``device_ms``
+    is None (see ``line_times``)."""
+    prof = device_profile(fn, iters, tries=5)
+    if not prof["usable"]:
+        prof["device_ms"] = None
     return prof
+
+
+def line_times(device, events):
+    """A kernel's times for the kernels line (``ms``, ``plain_ms`` and,
+    where there is one, ``library_ms``), all from one source, named in
+    ``ms_source``: the profiler's device ms where every one of them had a
+    usable window, else the CUDA events' ms of all of them, so that no
+    time stands against another source's."""
+    if None in device.values():
+        return dict(events, ms_source="events")
+    return dict(device, ms_source="profiler")
+
+
+def us_or_none(ms):
+    return None if ms is None else ms * 1e3
 
 
 def phase_device():
@@ -407,11 +453,27 @@ def build_oracle():
     return path
 
 
-def oracle_gate(oracle, left, right, forest_file, supports, settings):
-    """bench.py's gate: every support is in the oracle's set, and at least
-    99.9% of the oracle's supports are reproduced."""
+_ORACLE_SETS = {}
+_D_BIAS = 1 << 21  # |d| < 2^21: the widest frame is 3840 pixels
+
+
+def support_keys(rows):
+    """A support set as sorted unique int64 keys ``x << 43 | y << 22 | (d
+    + 2^21)`` of its (n, 3) (x, y, d) rows, so the gates run in numpy; a
+    key's pixel is ``key >> 22`` (``x << 21 | y``)."""
+    r = np.asarray(rows, np.int64).reshape(-1, 3)
+    return np.unique((r[:, 0] << 43) | (r[:, 1] << 22) | (r[:, 2] + _D_BIAS))
+
+
+def oracle_set(oracle, left, right, forest_file, settings):
+    """The native oracle's support set of a pair (``support_keys``), kept
+    for the run."""
     from opengpc_tpu_torch.io import write_raw
 
+    key = (hashlib.sha256(left.tobytes() + right.tobytes()).hexdigest(),
+           left.shape, forest_file, settings)
+    if key in _ORACLE_SETS:
+        return _ORACLE_SETS[key]
     with tempfile.TemporaryDirectory() as td:
         lp, rp, op = (os.path.join(td, n) for n in ("l.raw", "r.raw", "o.txt"))
         write_raw(lp, left)
@@ -422,11 +484,20 @@ def oracle_gate(oracle, left, right, forest_file, supports, settings):
              str(settings.vertical_tolerance), str(settings.disp_high),
              str(int(settings.epipolar_mode)), "0"], check=True)
         with open(op) as f:
-            want = {tuple(int(v) for v in ln.split()) for ln in f if ln.strip()}
-    got = set(map(tuple, supports.tolist()))
-    extra = len(got - want)
-    ok = extra == 0 and len(got) >= 0.999 * len(want)
-    return ok, {"supports": len(got), "oracle": len(want), "not_in_oracle": extra}
+            want = support_keys(np.array(f.read().split(), np.int64))
+    _ORACLE_SETS[key] = want
+    return want
+
+
+def oracle_gate(oracle, left, right, forest_file, supports, settings):
+    """bench.py's gate: every support is in the oracle's set, and at least
+    99.9% of the oracle's supports are reproduced."""
+    want = oracle_set(oracle, left, right, forest_file, settings)
+    got = support_keys(supports)
+    extra = int(np.setdiff1d(got, want, assume_unique=True).size)
+    ok = extra == 0 and got.size >= 0.999 * want.size
+    return ok, {"supports": int(got.size), "oracle": int(want.size),
+                "not_in_oracle": extra}
 
 
 def accuracy(supports):
@@ -554,16 +625,10 @@ def phase_times(smi):
     for _ in range(20):
         buf_h, rc_h = buf.cpu().numpy(), rc.cpu().numpy()
     d2h = (time.perf_counter() - t0) / 20 * 1e3
-    decode = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        masked_supports_to_numpy(buf_h, rc_h, settings.disp_high)
-        decode.append((time.perf_counter() - t0) * 1e3)
-    one_call = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        sparsematch(left, right, path, settings, device="cuda")
-        one_call.append((time.perf_counter() - t0) * 1e3)
+    decode = median_ms(lambda: masked_supports_to_numpy(
+        buf_h, rc_h, settings.disp_high), 20)
+    one_call = median_ms(lambda: sparsematch(left, right, path, settings,
+                                             device="cuda"), 20)
     prof_kernel = kernel_profile(kernel, 50)
     prof_plain = kernel_profile(plain, 10)
     prof_b1 = device_profile(lambda: mod(l_d, r_d), 50)
@@ -574,16 +639,15 @@ def phase_times(smi):
                  kernel_pair_ms=[k1, k2], plain_pair_ms=[p1, p2],
                  kernel_ms_per_pair_b64=k64,
                  pipeline_ms_per_pair_b1=pipe1, pipeline_ms_per_pair_b4=pipe4,
-                 d2h_ms=d2h, decode_ms_median=float(np.median(decode)),
-                 one_call_ms_median=float(np.median(one_call)))
+                 d2h_ms=d2h, decode_ms_median=decode,
+                 one_call_ms_median=one_call)
     emit("times", **times)
-    # device time of the kernel (both images, one launch) and of the twin,
-    # per pair; the events' times if the profiler saw no device activity
+    # time of the kernel (both images, one launch) and of the twin per pair
     ncand = int((_key_image(l_d, r_d, mask, settings) < SENTINEL_BASE).sum())
     return with_bound(
-        dict(ms=prof_kernel["device_ms"] or (k1 + k2) / 2,
-             plain_ms=prof_plain["device_ms"] or (p1 + p2) / 2,
-             library_ms=None),
+        dict(line_times(
+            dict(ms=prof_kernel["device_ms"], plain_ms=prof_plain["device_ms"]),
+            dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)), library_ms=None),
         2 * H * W * (1 + 4), code_ops(2, H, W, ncand, mask.num_tests))
 
 
@@ -961,25 +1025,28 @@ def kernel_vs_plain_times(kernel, plain, k_iters, p_iters, library=None):
     k1 = cuda_ms(kernel, k_iters)
     k2 = cuda_ms(kernel, k_iters)
     p2 = cuda_ms(plain, p_iters)
+    pk = kernel_profile(kernel, max(5, k_iters // 10))
+    pp = kernel_profile(plain, max(3, p_iters // 5))
     out = {}
+    device = dict(ms=pk["device_ms"], plain_ms=pp["device_ms"])
+    events = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
     if library is not None:
         l1 = kernel_profile(library, max(5, k_iters // 10))
         kl = [kernel_profile(kernel, max(5, k_iters // 10))
               for _ in range(2)]
         l2 = kernel_profile(library, max(5, k_iters // 10))
-        out = dict(library_events_ms=[cuda_ms(library, k_iters)
-                                      for _ in range(2)],
-                   library_device_ms=[l1["device_ms"], l2["device_ms"]],
+        lib_dev = [l1["device_ms"], l2["device_ms"]]
+        lib_events = [cuda_ms(library, k_iters) for _ in range(2)]
+        out = dict(library_events_ms=lib_events, library_device_ms=lib_dev,
                    library_kernels=l1["kernels"][:4],
-                   turns_device_ms=[kl[0]["device_ms"], kl[1]["device_ms"]],
-                   library_ms=(l1["device_ms"] + l2["device_ms"]) / 2)
-    pk = kernel_profile(kernel, max(5, k_iters // 10))
-    pp = kernel_profile(plain, max(3, p_iters // 5))
+                   turns_device_ms=[kl[0]["device_ms"], kl[1]["device_ms"]])
+        device["library_ms"] = None if None in lib_dev else float(
+            np.mean(lib_dev))
+        events["library_ms"] = float(np.mean(lib_events))
     return dict(out, events_ms=[k1, k2], plain_events_ms=[p1, p2],
                 device_ms=pk["device_ms"], plain_device_ms=pp["device_ms"],
                 kernels=pk["kernels"][:4], plain_kernels=pp["kernels"][:4],
-                ms=pk["device_ms"] or (k1 + k2) / 2,
-                plain_ms=pp["device_ms"] or (p1 + p2) / 2)
+                **line_times(device, events))
 
 
 def with_bound(times, nbytes, ops):
@@ -1015,10 +1082,11 @@ def phase_key_times(smi, masks):
             ms, by = bound(2 * b * h * w * (1 + 4),
                            code_ops(2 * b, h, w, ncand, zero.num_tests))
             cases[f"{name}/B{b}"] = dict(
-                device_us=[p["device_ms"] * 1e3 for p in prof],
+                device_us=[us_or_none(p["device_ms"]) for p in prof],
                 bound_us=ms * 1e3, bound_by=by,
                 candidate_share=ncand / (2 * b * h * w),
-                launches_per_call=prof[0]["kernels"][0][2])
+                launches_per_call=(prof[0]["kernels"][0][2]
+                                   if prof[0]["kernels"] else None))
     emit("key_kernel_times", card=smi, forest="defaultZeroForest", **cases)
 
 
@@ -1085,9 +1153,9 @@ def phase_new_times(smi, masks):
                               (PAD_KEY_BASE + lane[2 * w:]).expand(h, -1)],
                              dim=1)
         rows_pos = lane.expand(h, -1).contiguous()
-        times[name]["sort_alone_device_us"] = [kernel_profile(
-            lambda: bitonic_sort_rows(rows_key, rows_pos), 50)["device_ms"]
-            * 1e3 for _ in range(2)]
+        times[name]["sort_alone_device_us"] = [us_or_none(kernel_profile(
+            lambda: bitonic_sort_rows(rows_key, rows_pos), 50)["device_ms"])
+            for _ in range(2)]
     emit("kernel_times", card=smi, shape=[H, W], **times)
 
     pairs = [make_pair(H, W, TRUE_DISP, seed=300 + b) for b in range(4)]
@@ -1394,6 +1462,354 @@ def phase_census(launches):
         raise SystemExit(f"census call failed: {counts}, equal {same}")
 
 
+def phase_png_paths(td, paths, launches):
+    """The one-call sparsematch on PNG paths at 436x1024: the dense and
+    sparse pairs and a list of 4 pairs' paths (the thread-pool decode),
+    written with the port's ``write_png``, driven as one path with the
+    launch counters at 0 (one key-kernel launch a call, the batch folded)
+    and equal to the same calls on the arrays; and the ms to read a frame
+    with the reader that ran, beside the numpy codec on the same file and
+    on a filter-0 file."""
+    from opengpc_tpu_torch import InferenceSettings, sparsematch
+    from opengpc_tpu_torch.io import png
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    settings = InferenceSettings(**SETTINGS_KW)
+    forest = paths["defaultZeroForest"]
+    scenes = {"dense": make_pair(H, W, TRUE_DISP),
+              "sparse": make_sparse_pair(H, W, TRUE_DISP, density=0.15)}
+    pairs = [make_pair(H, W, TRUE_DISP, seed=100 + b) for b in range(4)]
+
+    def write(name, img):
+        path = os.path.join(td, f"{name}.png")
+        png.write_png(path, img)
+        return path
+
+    files = {s: (write(f"{s}_l", l), write(f"{s}_r", r))
+             for s, (l, r) in scenes.items()}
+    lists = tuple([write(f"batch{b}_{side}", p[i]) for b, p in enumerate(pairs)]
+                  for i, side in enumerate("lr"))
+
+    def drive():
+        out = {s: sparsematch(*files[s], forest, settings, device="cuda")
+               for s in scenes}
+        out["batch4"] = sparsematch(*lists, forest, settings, device="cuda")
+        return out
+
+    out, counts = launches.run("png_paths", drive, {"fused_keys": 3})
+    failures, report = [], {}
+    for s, pair in scenes.items():
+        same = bool(np.array_equal(
+            out[s], sparsematch(*pair, forest, settings, device="cuda")))
+        report[s] = dict(supports=len(out[s]), equals_array_call=same)
+        if not same or not len(out[s]):
+            failures.append(f"{s}: {report[s]}")
+    want = sparsematch(np.stack([p[0] for p in pairs]),
+                       np.stack([p[1] for p in pairs]), forest, settings,
+                       device="cuda")
+    same = all(np.array_equal(a, b) for a, b in zip(out["batch4"], want))
+    report["batch4"] = dict(supports=[len(a) for a in out["batch4"]],
+                            equals_array_call=same)
+    if not same:
+        failures.append(f"batch4: {report['batch4']}")
+    frame = files["dense"][0]
+    plain = os.path.join(td, "filter0.png")
+    png._write_python(plain, scenes["dense"][0], 1)
+    emit("png_paths", launches=counts, reader=png.png_reader(),
+         read_ms_median=median_ms(lambda: png.read_gray(frame), 20),
+         numpy_codec_read_ms=median_ms(lambda: png._read_python(frame), 3),
+         numpy_codec_filter0_read_ms_median=median_ms(
+             lambda: png._read_python(plain), 20),
+         batch4_read_ms_median=median_ms(
+             lambda: png.read_gray_batch(lists[0]), 20),
+         shape=[H, W], checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"png paths failed: {failures}")
+
+
+def main_path_masked_cases(paths):
+    """(name, mask, left, right) of every masked case of ``main_path``:
+    both scenes with both forests and the 17-test cut, and the batches'
+    pairs with the zero forest."""
+    from opengpc_tpu_torch import load_forest, make_filter_mask
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    zero = load_forest(paths["defaultZeroForest"])
+    masks = {"defaultZeroForest": make_filter_mask(zero),
+             "defaultTauForest": make_filter_mask(
+                 load_forest(paths["defaultTauForest"])),
+             "zero17": make_filter_mask(zero, max_tests=17)}
+    makes = {"dense": lambda s: make_pair(H, W, TRUE_DISP, seed=s),
+             "sparse": lambda s: make_sparse_pair(H, W, TRUE_DISP,
+                                                  density=0.15, seed=s)}
+    cases = []
+    for scene, make in makes.items():
+        for name, mask in masks.items():
+            cases.append((f"{scene}/{name}", mask, *make(42)))
+        for b in range(4):
+            cases.append((f"{scene}/batch{b}", masks["defaultZeroForest"],
+                          *make(100 + b)))
+    return cases
+
+
+def phase_native_decode(smi, paths):
+    """The host library's masked decode on the card's host: the library
+    must have built from ``cpp/``; its threaded and sequential scans equal
+    the numpy decode on the card's masked buffers of every masked case of
+    ``main_path`` and of a dense 2160x3840 pair; all three priced (median
+    of 20, of 5 for numpy at 2160x3840) on the dense pairs' buffers, the
+    scans in turns."""
+    from opengpc_tpu_torch import (InferenceSettings, build_sparsematch_masked,
+                                   load_forest, make_filter_mask)
+    from opengpc_tpu_torch.infer import _masked_decode_numpy
+    from opengpc_tpu_torch.io import _host, png
+    from opengpc_tpu_torch.match import MASKED_SENTINEL
+    from opengpc_tpu_torch.utils import make_pair
+
+    if png._native_lib() is None:
+        raise SystemExit("native decode: the host library did not build:\n"
+                         f"{_host.build_info.get('log')}")
+    settings = InferenceSettings(**SETTINGS_KW)
+    dh = settings.disp_high
+    failures, bufs = [], {}
+    for name, mask, left, right in main_path_masked_cases(paths):
+        buf, rc = build_sparsematch_masked(mask, settings, device="cuda")(
+            *(torch.from_numpy(a).cuda() for a in (left, right)))
+        buf, rc = buf.cpu().numpy(), rc.cpu().numpy()
+        n = int(rc.sum())
+        ref = _masked_decode_numpy(buf, n, dh)
+        par = png.masked_decode_native(buf, n, dh, MASKED_SENTINEL,
+                                       row_counts=rc)
+        seq = png.masked_decode_native(buf, n, dh, MASKED_SENTINEL)
+        if not (np.array_equal(par, ref) and np.array_equal(seq, ref) and n):
+            failures.append(name)
+        bufs[name] = (buf, rc, n)
+    buf, rc, n = bufs["dense/defaultZeroForest"]
+    scans = {
+        "native_threaded": lambda: png.masked_decode_native(
+            buf, n, dh, MASKED_SENTINEL, row_counts=rc),
+        "native_sequential": lambda: png.masked_decode_native(
+            buf, n, dh, MASKED_SENTINEL),
+        "numpy": lambda: _masked_decode_numpy(buf, n, dh)}
+    ms = {name: [] for name in scans}  # in turns: A B C C B A
+    for name in list(scans) + list(scans)[::-1]:
+        ms[name].append(median_ms(scans[name], 20))
+    # the threaded scan's case: a 2160x3840 dense pair's buffer
+    zero = make_filter_mask(load_forest(paths["defaultZeroForest"]))
+    big, big_rc = build_sparsematch_masked(zero, settings, device="cuda")(
+        *(torch.from_numpy(a).cuda()
+          for a in make_pair(2160, 3840, TRUE_DISP, seed=5)))
+    big, big_rc = big.cpu().numpy(), big_rc.cpu().numpy()
+    big_n = int(big_rc.sum())
+    ref = _masked_decode_numpy(big, big_n, dh)
+    big_scans = {
+        "native_threaded": lambda: png.masked_decode_native(
+            big, big_n, dh, MASKED_SENTINEL, row_counts=big_rc),
+        "native_sequential": lambda: png.masked_decode_native(
+            big, big_n, dh, MASKED_SENTINEL)}
+    if not all(np.array_equal(f(), ref) for f in big_scans.values()):
+        failures.append("dense-2160x3840")
+    big_ms = {name: [] for name in big_scans}  # A B B A
+    for name in list(big_scans) + list(big_scans)[::-1]:
+        big_ms[name].append(median_ms(big_scans[name], 20))
+    big_ms["numpy"] = median_ms(lambda: _masked_decode_numpy(big, big_n, dh),
+                                5)
+    emit("native_decode", card=smi, cases=len(bufs) + 1, failures=failures,
+         library=os.path.basename(_host.library_path()),
+         reader=png.png_reader(),
+         build_seconds=_host.build_info.get("seconds"),
+         build_log=_host.build_info.get("log", "")[-800:],
+         threads=png._DECODE_THREADS, cpu_count=os.cpu_count(),
+         affinity=len(os.sched_getaffinity(0)), buffer=list(buf.shape),
+         supports=n, ms_median_of_20_in_turns=ms,
+         big_buffer=list(big.shape), big_supports=big_n, big_ms=big_ms)
+    if failures:
+        raise SystemExit(f"native decode differs from numpy: {failures}")
+
+
+def np_downscale2(img):
+    """The pyramid's 2x2 floor mean in numpy, (a + b + c + d) // 4."""
+    h2, w2 = img.shape[0] // 2, img.shape[1] // 2
+    x = img[:2 * h2, :2 * w2].astype(np.int32)
+    return ((x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2])
+            // 4).astype(np.uint8)
+
+
+def pyramid_gate(oracle, left, right, forest_file, supports, settings,
+                 levels):
+    """The oracle gate a level: level l's (x, y, d) rows, divided by 2^l,
+    are a subset of the oracle's set on the images downscaled l times in
+    numpy, and of the oracle's supports whose level-0 pixel no finer level
+    took, at least 99.9% are reproduced (level 0: ``oracle_gate``)."""
+    ok, report = True, {}
+    taken = np.zeros(0, np.int64)  # level-0 pixels, x << 21 | y
+    for level in range(levels):
+        mine = supports[supports[:, 3] == level][:, :3].astype(np.int64)
+        want = oracle_set(oracle, left, right, forest_file, settings)
+        got = support_keys(mine >> level)
+        exact = not (mine % (1 << level)).any()
+        x, y = want >> 43, (want >> 22) & ((1 << 21) - 1)
+        free = want[~np.isin(((x << level) << 21) | (y << level), taken)]
+        extra = int(np.setdiff1d(got, want, assume_unique=True).size)
+        reproduced = int(np.intersect1d(got, free, assume_unique=True).size)
+        ok = ok and exact and not extra and reproduced >= 0.999 * free.size
+        report[f"level{level}"] = dict(
+            supports=len(mine), oracle=int(want.size), not_in_oracle=extra,
+            oracle_untaken=int(free.size), reproduced=reproduced)
+        taken = np.union1d(taken, (mine[:, 0] << 21) | mine[:, 1])
+        left, right = np_downscale2(left), np_downscale2(right)
+    return ok, report
+
+
+def phase_pyramid(oracle, paths, launches):
+    """The pyramid (``levels > 1``) on the card, each case driven with the
+    launch counters at 0: the one-call at levels 2 and 3 with both forests
+    at the CLI's settings on the dense and sparse pairs (rows pyramid, one
+    key-kernel launch a level); levels 3 at the library defaults (global
+    mode, the flat fallback, one code-kernel launch a level); 1080x1920 at
+    levels 3 (the unpackable dedup branch); levels 5 (a level inside the
+    margin); the B = 4 fold against its four single calls; the compact
+    pyramid on the sparse pair and on a (sparse, dense) batch.  Each
+    equals the CPU pipeline and passes ``pyramid_gate``; in epipolar mode
+    > 99% of the supports have the true disparity."""
+    from opengpc_tpu_torch import (InferenceSettings, load_forest,
+                                   make_filter_mask, sparsematch)
+    from opengpc_tpu_torch.infer import route
+    from opengpc_tpu_torch.pyramid import (build_pyramid_sparsematch,
+                                           build_pyramid_sparsematch_compact,
+                                           pyramid_supports_to_numpy)
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    cli, lib = InferenceSettings(**SETTINGS_KW), InferenceSettings()
+    zero = paths["defaultZeroForest"]
+    scenes = {"dense": make_pair(H, W, TRUE_DISP),
+              "sparse": make_sparse_pair(H, W, TRUE_DISP, density=0.15)}
+    failures, report = [], {}
+
+    def one_call(name, pair, forest, settings, levels, want_route, expect):
+        mask = make_filter_mask(load_forest(paths[forest]))
+        got_route = route(mask, pair[0].shape, settings, levels)
+        sup, counts = launches.run(name, lambda: sparsematch(
+            *pair, paths[forest], settings, device="cuda", levels=levels),
+            expect)
+        cpu = sparsematch(*pair, paths[forest], settings, device="cpu",
+                          levels=levels)
+        ok, rep = pyramid_gate(oracle, *pair, paths[forest], sup, settings,
+                               levels)
+        acc = accuracy(sup)
+        same = bool(np.array_equal(sup, cpu))
+        report[name] = dict(rep, route=got_route, equals_cpu=same,
+                            true_disparity_share=acc, launches=counts)
+        if not (ok and same and got_route == want_route and len(sup)
+                and (acc > MIN_ACCURACY or not settings.epipolar_mode)):
+            failures.append(f"{name}: {report[name]}")
+
+    for levels in (2, 3):
+        for forest in FORESTS:
+            for scene, pair in scenes.items():
+                one_call(f"levels{levels}/{forest}/{scene}", pair, forest,
+                         cli, levels, "pyramid-rows", {"fused_keys": levels})
+    for forest in FORESTS:
+        for scene, pair in scenes.items():
+            one_call(f"levels3/global/{forest}/{scene}", pair, forest, lib, 3,
+                     "pyramid-flat", {"fused_codes": 3})
+    one_call("levels3/1080x1920/unpackable",
+             make_pair(1080, 1920, TRUE_DISP, seed=5), "defaultZeroForest",
+             cli, 3, "pyramid-flat", {"fused_keys": 3})
+    one_call("levels5/dense", scenes["dense"], "defaultZeroForest", cli, 5,
+             "pyramid-rows", {"fused_keys": 5})
+
+    pairs = [make_pair(H, W, TRUE_DISP, seed=500 + b) for b in range(4)]
+    batch, counts = launches.run("levels3/batch4", lambda: sparsematch(
+        [p[0] for p in pairs], [p[1] for p in pairs], zero, cli,
+        device="cuda", levels=3), {"fused_keys": 3})
+    singles = [sparsematch(*p, zero, cli, device="cuda", levels=3)
+               for p in pairs]
+    same = all(np.array_equal(a, b) for a, b in zip(batch, singles))
+    report["levels3/batch4"] = dict(supports=[len(a) for a in batch],
+                                    equals_single=same, launches=counts)
+    if not same:
+        failures.append("levels3/batch4 differs from its single calls")
+
+    mask = make_filter_mask(load_forest(zero))
+    mods = {dev: (build_pyramid_sparsematch_compact(mask, cli, 3,
+                                                    device=dev),
+                  build_pyramid_sparsematch(mask, cli, 3, device=dev))
+            for dev in ("cuda", "cpu")}
+    lefts, rights = (torch.from_numpy(np.stack(
+        [scenes["sparse"][i], scenes["dense"][i]])) for i in (0, 1))
+    sl, sr = lefts[0].cuda(), rights[0].cuda()
+    out, counts = launches.run("compact/sparse",
+                               lambda: mods["cuda"][0](sl, sr),
+                               {"fused_keys": 3})
+    got = pyramid_supports_to_numpy(*out[:5])
+    rows = pyramid_supports_to_numpy(*mods["cuda"][1](sl, sr))
+    cpu = mods["cpu"][0](lefts[0], rights[0])
+    ok = (not bool(out[5]) and np.array_equal(got, rows) and len(got)
+          and all(torch.equal(a.cpu(), b) for a, b in zip(out, cpu)))
+    report["compact/sparse"] = dict(supports=len(got), overflow=bool(out[5]),
+                                    equals_rows=bool(np.array_equal(got,
+                                                                    rows)),
+                                    launches=counts)
+    if not ok:
+        failures.append(f"compact/sparse: {report['compact/sparse']}")
+    lb, rb = lefts.cuda(), rights.cuda()
+    out, counts = launches.run("compact/sparse+dense",
+                               lambda: mods["cuda"][0](lb, rb),
+                               {"fused_keys": 3})
+    cpu = mods["cpu"][0](lefts, rights)
+    flags = out[5].tolist()
+    ok = (flags == [False, True] and np.array_equal(
+        pyramid_supports_to_numpy(*(o[0] for o in out[:5])), got)
+        and all(torch.equal(a.cpu(), b) for a, b in zip(out, cpu)))
+    report["compact/sparse+dense"] = dict(overflow=flags, launches=counts)
+    if not ok:
+        failures.append(f"compact/sparse+dense: {flags}")
+    emit("pyramid", cases=len(report), checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"pyramid failed: {failures}")
+
+
+def phase_stereomatch(paths, launches):
+    """``build_stereomatch`` with both forests on the dense 436x1024 pair at
+    the library defaults, capacity H*W (the default 32768 would truncate
+    the global correspondences): one code-kernel launch a pair, a count
+    within capacity, equal to the CPU pipeline, and, filtered as the
+    rectified contract filters, the global-mode sparsematch set."""
+    from opengpc_tpu_torch import (InferenceSettings, build_stereomatch,
+                                   load_forest, make_filter_mask, sparsematch)
+    from opengpc_tpu_torch.utils import make_pair
+
+    settings = InferenceSettings(capacity=H * W)
+    left, right = make_pair(H, W, TRUE_DISP)
+    l_d, r_d = (torch.from_numpy(a).cuda() for a in (left, right))
+    failures, report = [], {}
+    for forest in FORESTS:
+        mask = make_filter_mask(load_forest(paths[forest]))
+        mod = build_stereomatch(mask, settings, device="cuda")
+        out, counts = launches.run(f"stereomatch/{forest}",
+                                   lambda: mod(l_d, r_d), {"fused_codes": 1})
+        cpu = build_stereomatch(mask, settings, device="cpu")(
+            torch.from_numpy(left), torch.from_numpy(right))
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(out, cpu))
+        n = int(out[4])
+        sx, sy, tx, ty = (o.cpu().numpy()[:n] for o in out[:4])
+        dx = sx - tx
+        keep = ((np.abs(sy - ty) <= settings.vertical_tolerance)
+                & (np.abs(dx) <= settings.disp_high))
+        got = set(zip(sx[keep].tolist(), sy[keep].tolist(), dx[keep].tolist()))
+        want = set(map(tuple, sparsematch(left, right, mask, settings,
+                                          device="cuda").tolist()))
+        report[forest] = dict(count=n, capacity=settings.capacity,
+                              filtered=len(got), sparsematch=len(want),
+                              equals_cpu=same, launches=counts)
+        if not (same and 0 < n <= settings.capacity and got == want):
+            failures.append(f"{forest}: {report[forest]}")
+    emit("stereomatch", checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"stereomatch failed: {failures}")
+
+
 def phase_slab_times(smi, masks):
     """The key kernel's slab mode (both slabs of the n = 1 pair, the whole
     436x1024 frame, in one launch, on one contiguous (2, H + 28, W)
@@ -1456,6 +1872,76 @@ def phase_slab_times(smi, masks):
             if name in KERNELS}
 
 
+def phase_pyramid_times(smi, masks):
+    """The one-call's module a pair at levels 1 (the masked module), 2 and
+    3 (the pyramid module), B = 1 and 4, zero forest, dense pair: events
+    and profiler device ms, busy share and the largest device items, and
+    the host clock of the one-call; and the batched dedup at levels 3, B =
+    4, pair by pair (JAX's ``lax.map``) against the one (B, K) sort that
+    ships, in turns, beside the dedup sort alone."""
+    from opengpc_tpu_torch import (InferenceSettings, build_sparsematch_masked,
+                                   sparsematch)
+    from opengpc_tpu_torch.infer import _stack
+    from opengpc_tpu_torch.pyramid import (_dedup_unpack, _pack_params,
+                                           _pyramid_batched_keys,
+                                           build_pyramid_sparsematch)
+    from opengpc_tpu_torch.utils import make_pair
+
+    settings = InferenceSettings(**SETTINGS_KW)
+    zero = masks["zero"]
+    path = os.path.join(REPO, "forests", "defaultZeroForest.txt")
+    left, right = make_pair(H, W, TRUE_DISP)
+    l_d, r_d = (torch.from_numpy(a).cuda() for a in (left, right))
+    pairs = [make_pair(H, W, TRUE_DISP, seed=300 + b) for b in range(4)]
+    lb, rb = (torch.from_numpy(np.stack([p[i] for p in pairs])).cuda()
+              for i in (0, 1))
+    modules = {}
+    for levels in (1, 2, 3):
+        mod = (build_sparsematch_masked(zero, settings, device="cuda")
+               if levels == 1 else
+               build_pyramid_sparsematch(zero, settings, levels, device="cuda"))
+        modules[f"levels{levels}"] = dict(
+            events_ms_per_pair_b1=[cuda_ms(lambda: mod(l_d, r_d), 20)
+                                   for _ in range(2)],
+            events_ms_per_pair_b4=[cuda_ms(lambda: mod(lb, rb), 10) / 4
+                                   for _ in range(2)],
+            profile_b1=device_profile(lambda: mod(l_d, r_d), 10, tries=1),
+            profile_b4=device_profile(lambda: mod(lb, rb), 5, tries=1),
+            one_call_ms_median=median_ms(lambda: sparsematch(
+                left, right, path, settings, device="cuda", levels=levels),
+                10),
+            one_call_ms_per_pair_b4_median=median_ms(lambda: sparsematch(
+                [p[0] for p in pairs], [p[1] for p in pairs], path, settings,
+                device="cuda", levels=levels), 5) / 4)
+    mult, nbd = _pack_params(settings, 3)
+    keys = _pyramid_batched_keys(lb, rb, zero, settings, 3, mult, nbd)
+
+    def dedup(k):
+        return _dedup_unpack(k, mult, nbd, W, settings.disp_high, 3)
+
+    forms = {"per_pair": lambda: _stack([dedup(k) for k in keys]),
+             "one_sort": lambda: dedup(keys)}
+    # windows of many kernels lose an event or two most of the time (a
+    # kernel counted 0.95-0.98 times a call): these report ``whole`` and
+    # are not retaken
+    turns = {name: [] for name in forms}
+    for name in ("per_pair", "one_sort", "one_sort", "per_pair"):
+        prof = device_profile(forms[name], 10, tries=1)
+        turns[name].append([prof["device_ms"], prof["whole"]])
+    sort_us = {}
+    for name, fn in (("one_pair", lambda: torch.sort(keys[0], stable=False)),
+                     ("b4_rows", lambda: torch.sort(keys, dim=-1,
+                                                    stable=False))):
+        prof = device_profile(fn, 20, tries=1)
+        sort_us[name] = [prof["device_ms"] * 1e3, prof["whole"],
+                         prof["kernels"][:4]]
+    emit("pyramid_times", card=smi, shape=[H, W], forest="defaultZeroForest",
+         modules=modules, dedup_b4_device_ms=turns,
+         dedup_b4_events_ms={n: [cuda_ms(f, 10) for _ in range(2)]
+                             for n, f in forms.items()},
+         dedup_sort_us=sort_us, keys_shape=list(keys.shape))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -1482,10 +1968,15 @@ def main():
         phase_descriptors(paths, masks, launches)
         phase_sharded_frame(oracle, paths, launches)
         phase_census(launches)
+        phase_png_paths(td, paths, launches)
+        phase_native_decode(smi, paths)
+        phase_pyramid(oracle, paths, launches)
+        phase_stereomatch(paths, launches)
         times = {"fused_keys": phase_times(smi)}
         phase_key_times(smi, masks)
         times.update(phase_new_times(smi, masks))
         times.update(phase_slab_times(smi, masks))
+        phase_pyramid_times(smi, masks)
     missing = [k for k, n in launches.total.items() if n == 0]
     if missing:
         raise SystemExit(f"no path launched {missing}")
@@ -1497,7 +1988,8 @@ def main():
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"],
         "bound_by": times[name]["bound_by"],
-        "library_ms": times[name]["library_ms"]} for name in KERNELS]}),
+        "library_ms": times[name]["library_ms"],
+        "ms_source": times[name]["ms_source"]} for name in KERNELS]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

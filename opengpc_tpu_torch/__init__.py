@@ -1,19 +1,25 @@
 """PyTorch/CUDA port of opengpc_tpu: GPC sparse stereo matching on an
 NVIDIA H100.
 
-The one-call ``sparsematch`` runs every level-1 route of the JAX package:
-the masked epipolar contract, the global-rows contract (the library
+The one-call ``sparsematch`` runs every route of the JAX package: at one
+level the masked epipolar contract, the global-rows contract (the library
 defaults: global mode, gradient threshold 10) and the flat contract (any
-forest of <= 32 tests, either mode), with the hand-written CUDA kernels of
-``csrc/`` (fused keys, fused codes, bitonic row sort, fused match).  The
-row-form and chunk-compacted contracts have their builders, and
-``opengpc_tpu_torch.parallel`` shards one frame's rows over a
-``torch.distributed`` group (the key kernel's slab mode).
+forest of <= 32 tests, either mode), and with ``levels > 1`` the
+coarse-to-fine pyramid (``opengpc_tpu_torch.pyramid``), on arrays,
+tensors or PNG paths, with the hand-written CUDA kernels of ``csrc/``
+(fused keys, fused codes, bitonic row sort, fused match) and the native
+host decode of ``cpp/decode.cc``.  The row-form and chunk-compacted
+contracts have their builders, ``build_stereomatch`` gives the unfiltered
+correspondences, and ``opengpc_tpu_torch.parallel`` shards one frame's
+rows over a ``torch.distributed`` group (the key kernel's slab mode).
 ``ops.fused.fused_census`` is the census kernel.  The package imports
-torch and numpy and never JAX; importing it builds and loads no kernel.
+torch and numpy and never JAX; importing it builds and loads no kernel
+and no host library.
 
 >>> from opengpc_tpu_torch import InferenceSettings, sparsematch
 >>> supports = sparsematch(left, right, "forests/defaultZeroForest.txt")
+>>> from_files = sparsematch("left.png", "right.png",
+...                          "forests/defaultZeroForest.txt", levels=3)
 >>> cli = sparsematch(left, right, "forests/defaultZeroForest.txt",
 ...                   InferenceSettings(gradient_threshold=5,
 ...                                     epipolar_mode=True))
@@ -28,7 +34,7 @@ from opengpc_tpu_torch.infer import (build_sparsematch,
                                      build_sparsematch_masked,
                                      build_sparsematch_masked_compact,
                                      build_sparsematch_rows,
-                                     extract_descriptors,
+                                     build_stereomatch, extract_descriptors,
                                      global_row_supports_to_numpy,
                                      masked_supports_to_numpy,
                                      row_supports_to_numpy, sparsematch,
@@ -42,6 +48,7 @@ __all__ = [
     "build_sparsematch_masked",
     "build_sparsematch_masked_compact",
     "build_sparsematch_rows",
+    "build_stereomatch",
     "extract_descriptors",
     "filter_mask_from_numpy",
     "global_row_supports_to_numpy",

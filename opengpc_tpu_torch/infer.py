@@ -17,10 +17,14 @@ settings, as in ``opengpc_tpu.infer``:
   fixed-capacity (x, y, d) buffer and the true count
   (``supports_to_numpy``).
 
-``sparsematch`` picks the route as the JAX package does.  A (B, H, W)
-batch folds into one row sort on the masked route and runs pair by pair
-(the JAX package's ``lax.map``) on the others.  The pyramid (``levels >
-1``) and PNG inputs are not ported yet and raise ``NotImplementedError``.
+``sparsematch`` picks the route as the JAX package does, and runs the
+pyramid (``opengpc_tpu_torch.pyramid``) for ``levels > 1``.  It takes
+arrays, tensors, PNG paths or lists of them; PNGs decode on the host
+(``io.read_gray``).  A (B, H, W) batch folds into one row sort on the
+masked route and the rows pyramid and runs pair by pair (the JAX
+package's ``lax.map``) on the others.  The masked buffer decodes on the
+host with ``cpp/decode.cc``'s scan (``io.png.masked_decode_native``), the
+numpy scan where the host library cannot be built.
 
 Beside the routes, the builders of the other contracts: the row form
 (``build_sparsematch_rows``, per-row left-packed (xs, ds)), and the
@@ -29,7 +33,8 @@ chunk-compacted low-density masked and global contracts
 ``build_sparsematch_global_compact``), whose ``overflow`` flag tells the
 caller to re-run the full-width contract.  ``_key_image_slab`` is the key
 image of one row slab of a larger frame, the sharded frame's
-(``opengpc_tpu_torch.parallel``).
+(``opengpc_tpu_torch.parallel``).  ``build_stereomatch`` is the
+reference's stereoMatch surface: unfiltered global correspondences.
 """
 
 from __future__ import annotations
@@ -45,8 +50,11 @@ from torch import nn
 
 from opengpc_tpu_torch.config import InferenceSettings
 from opengpc_tpu_torch.forest import FilterMask, Forest, load_forest, make_filter_mask
+from opengpc_tpu_torch.io.png import (masked_decode_native, read_gray,
+                                      read_gray_batch)
 from opengpc_tpu_torch.match import (MASKED_SENTINEL, SENTINEL_BASE, _bits,
                                      _match_epipolar_packed, _rows_of, compact,
+                                     match_correspondences,
                                      match_epipolar, match_epipolar_masked,
                                      match_epipolar_masked_compact,
                                      match_epipolar_rows, match_global,
@@ -290,6 +298,19 @@ def _sparsematch_global_compact_impl(left, right, mask: FilterMask,
         chunk=chunk, k=k, y_offset=m)
 
 
+def _stereomatch_impl(left, right, mask: FilterMask,
+                      settings: InferenceSettings):
+    """Unfiltered global correspondences of one (H, W) pair: (sx, sy, tx,
+    ty) (capacity,) int32 buffers and the true count.  One code-kernel
+    launch for both images on CUDA tensors."""
+    (codes_l, cand_l), (codes_r, cand_r) = fused_codes_pair(
+        left, right, mask, settings.gradient_threshold)
+    (sx, sy, tx, ty), count = match_correspondences(
+        codes_l, codes_r, cand_l, cand_r, settings.capacity,
+        packed=_packed_ok(mask, left.shape))
+    return sx, sy, tx, ty, count
+
+
 def _stack(outs):
     """Stack a list of equally nested tuples of tensors along a new axis."""
     if isinstance(outs[0], tuple):
@@ -394,6 +415,13 @@ class SparsematchGlobalCompact(_Matcher):
                                                 self.chunk, self.k)
 
 
+class Stereomatch(_Matcher):
+    """The correspondence matcher: ``(sx, sy, tx, ty, count)``.  A batch
+    runs pair by pair."""
+
+    _pair = staticmethod(_stereomatch_impl)
+
+
 def build_sparsematch_masked(forest_or_mask, settings: InferenceSettings,
                              device="cuda") -> SparsematchMasked:
     """The masked epipolar matcher as an ``nn.Module`` on ``device``.
@@ -465,6 +493,17 @@ def build_sparsematch_global_compact(forest_or_mask,
                                     torch.device(device), chunk, k)
 
 
+def build_stereomatch(forest_or_mask, settings: InferenceSettings,
+                      device="cuda") -> Stereomatch:
+    """The correspondence matcher as an ``nn.Module`` on ``device``, the
+    reference's stereoMatch surface: global unique-collision
+    correspondences (sx, sy, tx, ty) (capacity,) int32 buffers and their
+    true count, with no epipolar, disparity or vertical filter.  A (B, H,
+    W) batch runs pair by pair."""
+    return Stereomatch(_as_mask(forest_or_mask), settings,
+                       torch.device(device))
+
+
 def _numpy(t):
     """Host copies of a tensor, an array or a nested tuple of them."""
     if isinstance(t, tuple):
@@ -474,13 +513,25 @@ def _numpy(t):
 
 def masked_supports_to_numpy(buf, row_counts, disp_high: int) -> np.ndarray:
     """Decode one pair's masked buffer into the (n, 3) int32 (x, y, d)
-    support array: row-major, code-sorted within each row."""
+    support array: row-major, code-sorted within each row.  The scan is
+    the host library's (``io.png.masked_decode_native``, on threads for a
+    large buffer), or :func:`_masked_decode_numpy` where the library cannot
+    be built."""
     buf, row_counts = _numpy(buf), _numpy(row_counts)
     if buf.ndim != 2:
         raise ValueError(
             "masked_supports_to_numpy takes one pair's (H, 2W) buffer; "
             "index the batch axis first")
     n = int(row_counts.sum())
+    out = masked_decode_native(buf, n, disp_high, MASKED_SENTINEL,
+                               row_counts=row_counts)
+    return out if out is not None else _masked_decode_numpy(buf, n,
+                                                            disp_high)
+
+
+def _masked_decode_numpy(buf: np.ndarray, n: int, disp_high: int):
+    """The plain masked decode: one flat nonzero pass over the (H, 2W)
+    buffer; raises when it holds other than ``n`` supports."""
     bd = max(1, int(2 * disp_high).bit_length())
     flat = buf.ravel()
     pos = np.flatnonzero(flat != MASKED_SENTINEL)
@@ -611,23 +662,40 @@ def _mask_cache_key(mask: FilterMask):
     return (mask_tests(mask), mask.type)
 
 
+def _is_path(x) -> bool:
+    return isinstance(x, (str, os.PathLike))
+
+
+def _host_frame(x):
+    """A PNG path decoded on the host (``io.read_gray``); arrays and
+    tensors pass."""
+    return read_gray(os.fspath(x)) if _is_path(x) else x
+
+
 def _image_arg(x, device) -> torch.Tensor:
     """One sparsematch image argument as a uint8 tensor on ``device``: an
-    array or tensor, or a list of same-shape frames stacked to (B, H, W)."""
-    if isinstance(x, (str, os.PathLike)):
-        raise NotImplementedError(
-            "PNG inputs wait for the port of opengpc_tpu.io.png (ROADMAP "
-            "queue 1, item 11); pass uint8 arrays")
+    array or tensor, a PNG path, or a list of same-shape frames or paths
+    stacked to (B, H, W).  Four or more paths decode through
+    ``io.read_gray_batch``.  Frames decode and stack on the host and
+    upload once."""
     if isinstance(x, (list, tuple)):
         if not x:
             raise ValueError("sparsematch got an empty batch list")
-        frames = [_image_arg(f, device) for f in x]
+        if len(x) >= 4 and all(map(_is_path, x)):
+            frames = read_gray_batch([os.fspath(f) for f in x])
+        else:
+            frames = [_host_frame(f) for f in x]
         shapes = {tuple(f.shape) for f in frames}
         if len(shapes) != 1:
             raise ValueError(
                 f"batch frames have differing shapes: {sorted(shapes)}; "
                 "sparsematch batches one resolution per call")
-        return torch.stack(frames)
+        if any(isinstance(f, torch.Tensor) for f in frames):
+            return torch.stack([_image_arg(f, device) for f in frames])
+        for f in frames:
+            require_u8(f)
+        x = np.stack(frames)
+    x = _host_frame(x)
     require_u8(x)
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
@@ -641,9 +709,18 @@ def _pair_of(out, i):
     return out[i]
 
 
-def route(mask: FilterMask, shape, settings: InferenceSettings) -> str:
-    """The one-call route of an (H, W) frame: "masked", "global-rows" or
-    "flat", chosen as the JAX package chooses."""
+def route(mask: FilterMask, shape, settings: InferenceSettings,
+          levels: int = 1) -> str:
+    """The one-call route of an (H, W) frame, chosen as the JAX package
+    chooses: "masked", "global-rows" or "flat" at one level; with ``levels
+    > 1`` "pyramid-rows" (every level on the row-form matcher) or
+    "pyramid-flat" (the flat fallback: global mode or unpackable dedup
+    keys)."""
+    if levels > 1:
+        from opengpc_tpu_torch.pyramid import _rows_eligible
+
+        el = _rows_eligible(mask, settings, shape[0], shape[1], levels)
+        return "pyramid-rows" if el is not None else "pyramid-flat"
     if settings.epipolar_mode and _rows_ok(mask, shape, settings):
         return "masked"
     if not settings.epipolar_mode and _global_rows_ok(mask, shape, settings):
@@ -662,31 +739,51 @@ _DECODERS = {
 }
 
 
+def _build(contract, mask, settings, device, levels):
+    """The module of a one-call contract."""
+    if levels > 1:
+        from opengpc_tpu_torch.pyramid import build_pyramid_sparsematch
+
+        return build_pyramid_sparsematch(mask, settings, num_levels=levels,
+                                         device=device)
+    return _BUILDERS[contract](mask, settings, device)
+
+
+def _decode_pyramid(out, settings):
+    from opengpc_tpu_torch.pyramid import pyramid_supports_to_numpy
+
+    return pyramid_supports_to_numpy(*out)
+
+
 def sparsematch(left, right, forest_or_mask,
                 settings: Optional[InferenceSettings] = None,
                 device="cuda", levels: int = 1):
     """One-call sparse match: a rectified (H, W) uint8 pair -> the (n, 3)
     int32 (x, y, d) support array, d = x_src - x_tar.
 
-    ``left``/``right`` are arrays or tensors, or (B, H, W) stacks (or
-    lists of frames) for a batch, which returns a length-B list.
-    ``forest_or_mask`` is a ``Forest``, a ``FilterMask`` or a forest file
-    path (parsed once and cached).  The device stages run on ``device``;
-    the decode runs on the host.
+    ``left``/``right`` are arrays, tensors or PNG paths (8/16-bit,
+    palette and RGB files read as the reference's grayscale), or (B, H, W)
+    stacks or lists of frames or paths for a batch, which returns a
+    length-B list.  ``forest_or_mask`` is a ``Forest``, a ``FilterMask`` or
+    a forest file path (parsed once and cached).  The device stages run
+    on ``device``; the PNG and support decodes run on the host.
+
+    >>> supports = sparsematch("left.png", "right.png", "forest.txt")
 
     The route is the JAX package's: the masked contract in epipolar mode
     when it applies, the global-rows contract in global mode when it
     applies, and the flat contract otherwise (more than 30 tests, or a
     pack wider than 30 bits).  The flat route raises ``ValueError`` when a
-    pair has more supports than ``settings.capacity``.  The pyramid
-    (``levels > 1``) and PNG paths raise ``NotImplementedError``.
+    pair has more supports than ``settings.capacity``.
+
+    ``levels > 1`` runs the coarse-to-fine pyramid instead (the CLI's
+    ``--pyramid N``): supports of every scale, finest-level-wins, as an
+    (n, 4) int32 (x, y, d, level) array in level-0 coordinates.  Lossless
+    on either route (``pyramid.build_pyramid_sparsematch``).
     """
     settings = settings if settings is not None else InferenceSettings()
     if levels < 1:
         raise ValueError(f"levels must be >= 1, got {levels}")
-    if levels > 1:
-        raise NotImplementedError(
-            "the pyramid is not ported yet (ROADMAP queue 1, item 5)")
     if isinstance(forest_or_mask, (str, os.PathLike)):
         forest_or_mask = _load_forest_cached(os.fspath(forest_or_mask))
     mask = _as_mask(forest_or_mask)
@@ -701,10 +798,11 @@ def sparsematch(left, right, forest_or_mask,
             f"sparsematch takes one (H, W) pair or a (B, H, W) batch, got "
             f"shape {tuple(left.shape)}")
     batched = left.dim() == 3
-    contract = route(mask, tuple(left.shape[-2:]), settings)
+    contract = (f"pyramid-{levels}" if levels > 1
+                else route(mask, tuple(left.shape[-2:]), settings))
     key = (_mask_cache_key(mask), settings, device, contract)
     fn = _MATCH_FN_CACHE.get_or_add(
-        key, lambda: _BUILDERS[contract](mask, settings, device))
+        key, lambda: _build(contract, mask, settings, device, levels))
     out = _numpy(fn(left, right))
     if contract == "flat":
         count = out[3]
@@ -717,7 +815,7 @@ def sparsematch(left, right, forest_or_mask,
                 "flat contract; raise capacity (these settings are outside "
                 "the packed-key contracts: width/disp_high beyond the 30-bit "
                 "budget, or a >30-test forest)")
-    decode = _DECODERS[contract]
+    decode = _DECODERS[contract] if levels == 1 else _decode_pyramid
     if batched:
         return [decode(_pair_of(out, i), settings)
                 for i in range(left.shape[0])]

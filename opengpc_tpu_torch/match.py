@@ -13,7 +13,8 @@ Output contracts: the masked buffer (``match_epipolar_masked``), the row
 form (``match_epipolar_rows``), the flat fixed-capacity buffer
 (``match_epipolar``, ``match_global``: compaction is a sort by position or
 by the packed support, as in the JAX package), the segmented global rows
-(``match_global_rows``), and the chunk-compacted low-density variants of
+(``match_global_rows``), the unfiltered correspondences
+(``match_correspondences``), and the chunk-compacted low-density variants of
 the masked and global contracts (``match_epipolar_masked_compact``,
 ``match_global_rows_compact``) with their overflow flag.  The sorts are
 ``torch.sort``, the counterpart of XLA's ``lax.sort``; the bitonic row
@@ -440,6 +441,17 @@ def _global_pairs(code_src, code_tar, valid_src, valid_tar, packed=False):
             torch.where(src_left, y_s[:-1], y_s[1:]),
             torch.where(src_left, x_s[1:], x_s[:-1]),
             torch.where(src_left, y_s[1:], y_s[:-1]))
+
+
+def match_correspondences(code_src, code_tar, valid_src, valid_tar,
+                          capacity: int, packed: bool = False):
+    """Unfiltered global unique-collision correspondences of two (H, W)
+    code images, the reference's stereoMatch output before its rectified
+    filter: ((sx, sy, tx, ty), count), each a (capacity,) int32 buffer in
+    the flat order of the sorted windows, ``count`` the true number."""
+    is_match, src_x, src_y, tar_x, tar_y = _global_pairs(
+        code_src, code_tar, valid_src, valid_tar, packed)
+    return compact(is_match, (src_x, src_y, tar_x, tar_y), capacity)
 
 
 def match_global(code_src, code_tar, valid_src, valid_tar, disp_high: int,

@@ -18,7 +18,9 @@ from opengpc_tpu.io.raw import write_raw
 import opengpc_tpu_torch as pt
 import opengpc_tpu_torch.infer as tinfer
 import opengpc_tpu_torch.parallel as tparallel
+import opengpc_tpu_torch.pyramid as tpyramid
 from opengpc_tpu_torch.forest import Forest
+from opengpc_tpu_torch.io import write_png
 from opengpc_tpu_torch.match import MASKED_SENTINEL
 from opengpc_tpu_torch.utils import make_pair, make_scene, make_sparse_pair
 
@@ -186,16 +188,27 @@ def test_one_call_guards():
 
 
 @pytest.mark.parametrize("case", ["pyramid", "png"])
-def test_one_call_refuses_other_routes(case):
-    _, ts = settings_pair()
+def test_one_call_refuses_other_routes(case, tmp_path):
+    """The routes the port once refused now run and equal JAX's one-call
+    (the pyramid, a PNG path); what JAX's refuses, the port refuses: a
+    missing PNG raises OSError, a pyramid with levels < 1 ValueError."""
+    js, ts = settings_pair()
     left, right = make_pair(40, 80, 3)
-    kw = {}
     if case == "pyramid":
-        kw["levels"] = 2
+        got = pt.sparsematch(left, right, ZERO, ts, device="cpu", levels=2)
+        want = jt.sparsematch(left, right, ZERO, js, levels=2)
+        with pytest.raises(ValueError, match="levels"):
+            pt.sparsematch(left, right, ZERO, ts, device="cpu", levels=0)
     else:
-        left = "left.png"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.sparsematch(left, right, ZERO, ts, device="cpu", **kw)
+        path = str(tmp_path / "left.png")
+        write_png(path, left)
+        got = pt.sparsematch(path, right, ZERO, ts, device="cpu")
+        want = jt.sparsematch(path, right, ZERO, js)
+        with pytest.raises(OSError):
+            pt.sparsematch(str(tmp_path / "missing.png"), right, ZERO, ts,
+                           device="cpu")
+    assert len(got) > 0
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("case", ["global", "tests31", "wide_pack"])
@@ -294,7 +307,9 @@ def test_cuda_request_never_runs_on_cpu():
     pt.build_sparsematch_global_rows, pt.build_sparsematch_rows,
     pt.build_sparsematch_masked_compact, pt.build_sparsematch_global_compact,
     tparallel.build_sharded_frame_sparsematch, tinfer._Matcher,
-    pt.sparsematch, pt.extract_descriptors,
+    pt.sparsematch, pt.extract_descriptors, pt.build_stereomatch,
+    tpyramid.build_pyramid_sparsematch,
+    tpyramid.build_pyramid_sparsematch_compact,
 ], ids=lambda fn: fn.__name__)
 def test_entry_points_default_to_the_card(fn):
     """Every builder, the modules' base and the one-call entry points run

@@ -24,16 +24,22 @@ def _clean_env():
 
 
 def test_port_imports_no_jax():
+    """Importing every module of the port imports no JAX and builds and
+    loads neither the kernels nor the host library."""
     code = ("import sys, opengpc_tpu_torch, opengpc_tpu_torch.infer, "
             "opengpc_tpu_torch.match, opengpc_tpu_torch.ops.fused, "
             "opengpc_tpu_torch.ops.sort, opengpc_tpu_torch.ops.fused_match, "
             "opengpc_tpu_torch.ops.census, opengpc_tpu_torch.parallel, "
-            "opengpc_tpu_torch.ops._build\n"
+            "opengpc_tpu_torch.ops._build, opengpc_tpu_torch.pyramid, "
+            "opengpc_tpu_torch.io.png, opengpc_tpu_torch.io._host\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'opengpc_tpu.')) or m == 'opengpc_tpu')\n"
             "assert not bad, bad\n"
             "from opengpc_tpu_torch.ops import _build\n"
-            "assert _build._lib is None\n")
+            "from opengpc_tpu_torch.io import _host, png\n"
+            "assert _build._lib is None\n"
+            "assert png._NATIVE is None and not png._NATIVE_TRIED\n"
+            "assert not _host.build_info\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           env=_clean_env(), capture_output=True, text=True,
                           timeout=120)
