@@ -17,7 +17,12 @@ bitonic sort) and ``extract_descriptors``; the row-sharded single frame
 in one process) and one census call; the one-call on PNG paths, the
 native host decode against the numpy one, the pyramid (``levels`` 2, 3
 and 5, the flat fallback, the batched fold, the compact pyramid) and
-``build_stereomatch``.  Each path runs with every launch counter at 0
+``build_stereomatch``.  The offline workflow follows: the device triplet
+extraction against the numpy one, forest training on the card at ~10^6
+triplets (fern at a time equal to batched, the card's forest equal to the
+CPU's on a subset, each forest held to the pretrained one on a held-out
+scene), and the ``extract`` and ``train`` CLIs on a Sintel-layout tree
+whose fresh forest then matches through the key kernel.  Each path runs with every launch counter at 0
 and is read right after, so the run shows which kernels it went through.
 Supports are checked against the native oracle (``cpp/build/oracle``;
 level by level on downscaled images for the pyramid), the CPU pipeline
@@ -33,7 +38,9 @@ non-zero; without a CUDA device the script exits non-zero before doing
 anything.
 """
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -291,7 +298,7 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters, tries=3):
+def device_profile(fn, iters, tries=3, warm=True):
     """torch.profiler over ``iters`` calls of ``fn``: the window's host ms
     per call, device ms per call summed over kernels, the device busy
     share, and the kernels by device time (us per call).  Every call
@@ -301,12 +308,14 @@ def device_profile(fn, iters, tries=3):
     launches a call; its time a call is then its mean launch's times that
     number, still the call's (``usable``).  Most events lost, or none
     recorded, is not usable: the window is taken again, up to ``tries``
-    times.  ``lost_windows`` counts the windows that lost events."""
+    times.  ``lost_windows`` counts the windows that lost events.  With
+    ``warm`` false the first window is the first call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
+    if warm:
+        fn()
+        torch.cuda.synchronize()
     for lost in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1942,6 +1951,269 @@ def phase_pyramid_times(smi, masks):
          dedup_sort_us=sort_us, keys_shape=list(keys.shape))
 
 
+# the offline workflow's phases: Sintel-size scenes, the extract defaults'
+# annulus, 16,000 keypoints a pair (64 pairs make ~10^6 triplets, the
+# order of the reference extract's defaults over Sintel)
+MINE_PAIRS, TRAIN_PAIRS, KEYPOINTS = 4, 64, 16000
+RADII = (20, 40)
+CPU_SUBSET = 50000
+# the quality bar of the JAX package's trained-forest gates: coverage
+# within 10 % and exact-disparity precision within 1 % of the pretrained
+# forest on a held-out scene, matched with these settings
+QUALITY_KW = dict(gradient_threshold=5, vertical_tolerance=0, disp_high=32,
+                  epipolar_mode=True, capacity=1 << 17)
+
+
+def scene_keypoints(rng):
+    """A ``make_scene(H, W)`` pair and ``KEYPOINTS`` stereo keypoints of it."""
+    from opengpc_tpu_torch.mine import mine_stereo_pair
+    from opengpc_tpu_torch.utils import make_scene
+
+    left, right, gt, occ = make_scene(rng, H, W)
+    keys = mine_stereo_pair(gt, occ, np.zeros((H, W), np.uint8), KEYPOINTS,
+                            *RADII, rng)
+    return left, right, keys
+
+
+def phase_mine_device():
+    """``extract_triplets_device`` on the card against the numpy
+    ``extract_triplets`` on the same keypoints, byte for byte, on
+    ``MINE_PAIRS`` Sintel-size pairs; host ms a pair of each path."""
+    from opengpc_tpu_torch.mine import (extract_triplets,
+                                        extract_triplets_device)
+
+    rng = np.random.default_rng(8)
+    failures, dev_ms, host_ms = [], [], []
+    for p in range(MINE_PAIRS):
+        left, right, keys = scene_keypoints(rng)
+        t0 = time.perf_counter()
+        dev = extract_triplets_device(left, right, *keys, device="cuda")
+        t1 = time.perf_counter()
+        host = extract_triplets(left, right, *keys)
+        t2 = time.perf_counter()
+        dev_ms.append((t1 - t0) * 1e3)
+        host_ms.append((t2 - t1) * 1e3)
+        if not (dev.dtype == np.uint8 and host.shape == (KEYPOINTS, 3, 729)
+                and np.array_equal(dev, host)):
+            failures.append(f"pair {p}: {dev.shape} {dev.dtype}, host "
+                            f"{host.shape}")
+    emit("mine_device", pairs=MINE_PAIRS, keypoints=KEYPOINTS, shape=[H, W],
+         device_path_ms=dev_ms, host_path_ms=host_ms, failures=failures)
+    if failures:
+        raise SystemExit(f"device extraction failed: {failures}")
+
+
+def quality_vs_pretrained(forest, pretrained_file, seed):
+    """Supports and exact-disparity precision of a fresh forest and of a
+    pretrained one on a held-out ``make_scene(H, W)``, matched on the
+    card, and whether the fresh forest meets the quality bar."""
+    from opengpc_tpu_torch import InferenceSettings, load_forest, sparsematch
+    from opengpc_tpu_torch.metrics import support_precision
+    from opengpc_tpu_torch.utils import make_scene
+
+    left, right, gt, occ = make_scene(np.random.default_rng(seed), H, W)
+    settings = InferenceSettings(**QUALITY_KW)
+    out = {}
+    for name, f in (("fresh", forest),
+                    ("pretrained", load_forest(pretrained_file))):
+        sup = sparsematch(left, right, f, settings, device="cuda")
+        out[name] = [len(sup), support_precision(sup, gt, valid=occ == 0,
+                                                 tol=0)[0]]
+    (n_f, p_f), (n_p, p_p) = out["fresh"], out["pretrained"]
+    return out, bool(n_p > 10000 and n_f >= 0.9 * n_p and p_f >= p_p - 0.01)
+
+
+def phase_train(smi, paths):
+    """Forest training on the card at ~10^6 triplets (``TRAIN_PAIRS`` pairs
+    extracted on the card): ``fern_factory(2, 2, 2, 5)`` at the reference
+    train defaults, with the zero and the tau optimizer, fern at a time
+    (the default at this size) and batched.  The two forest texts must be
+    byte-identical, the card's forest must equal the CPU's on the first
+    ``CPU_SUBSET`` triplets, and the forest must meet the quality bar on a
+    held-out scene.  Reports wall s a forest, the profiler's device ms and
+    busy share of a forest, the scorer's device ms a level, and the peak
+    device memory."""
+    from opengpc_tpu_torch import (fern_factory, serialize_forest,
+                                   tau_optimizer, train_forest,
+                                   zero_optimizer)
+    from opengpc_tpu_torch import train as train_mod
+    from opengpc_tpu_torch.mine import extract_triplets_device
+
+    rng = np.random.default_rng(1)
+    t0 = time.perf_counter()
+    chunks = []
+    for _ in range(TRAIN_PAIRS):
+        left, right, keys = scene_keypoints(rng)
+        chunks.append(extract_triplets_device(left, right, *keys,
+                                              device="cuda"))
+    trips = np.concatenate(chunks)
+    del chunks
+    build_s = time.perf_counter() - t0
+    n = len(trips)
+    settings = fern_factory(2, 2, 2, 5)
+    f, sub_n = len(settings.ferns), int(settings.sample_fraction * n)
+    failures, report = [], {}
+    for name, opt, pre in (("zero", zero_optimizer(), "defaultZeroForest"),
+                           ("tau", tau_optimizer(), "defaultTauForest")):
+        forests, rows = {}, {}
+        for path, batch in (("fern_at_a_time", None), ("batched", True)):
+            def train(batch=batch):
+                return train_forest(trips, settings, opt, seed=0,
+                                    verbose=False, batch_ferns=batch,
+                                    device="cuda")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            forests[path] = train()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            prof = device_profile(train, 1, tries=1, warm=False)
+            rows[path] = dict(wall_s=wall_s, max_memory_allocated=peak,
+                              profiled_wall_ms=prof["wall_ms"],
+                              device_ms=prof["device_ms"],
+                              busy_share=prof["busy_share"],
+                              whole=prof["whole"], top=prof["kernels"][:4])
+        # the scorer alone, all flags set: one level of one fern's
+        # bootstrap, and the same level of all six ferns at once
+        crng = np.random.default_rng(0)
+        data = torch.from_numpy(trips).cuda()
+        stack = data[torch.as_tensor(crng.integers(0, n, (f, sub_n)),
+                                     device="cuda")]
+        del data
+        cand = np.stack([train_mod.sample_candidates(crng, s,
+                                                     opt.num_resamples)
+                         for s in settings.ferns])
+        ones = torch.ones((f, sub_n), dtype=torch.bool, device="cuda")
+        taus = opt.tau_hi - opt.tau_lo
+        scorers = {
+            "one_fern": lambda: train_mod._score_level(
+                stack[0], cand[0], opt.tau_lo, taus, ones[0], ones[0],
+                ones[0]),
+            "six_ferns": lambda: train_mod._score_level_ferns(
+                stack, cand, opt.tau_lo, taus, ones, ones, ones)}
+        rows["scorer_level"] = {}
+        for key, fn in scorers.items():
+            prof = device_profile(fn, 3)
+            rows["scorer_level"][key] = dict(
+                device_ms=prof["device_ms"], usable=prof["usable"],
+                busy_share=prof["busy_share"], events_ms=cuda_ms(fn, 3))
+        del stack, ones
+        sub = trips[:CPU_SUBSET]
+        t0 = time.perf_counter()
+        card = serialize_forest(train_forest(sub, settings, opt, seed=5,
+                                             verbose=False, device="cuda"))
+        t1 = time.perf_counter()
+        cpu = serialize_forest(train_forest(sub, settings, opt, seed=5,
+                                            verbose=False, device="cpu"))
+        t2 = time.perf_counter()
+        fresh = forests["fern_at_a_time"]
+        quality, good = quality_vs_pretrained(fresh, paths[pre], 77)
+        same = (serialize_forest(fresh)
+                == serialize_forest(forests["batched"]))
+        taus_used = any(t.tau for fern in fresh.ferns for t in fern.tests)
+        rows.update(batched_equals_fern_at_a_time=same,
+                    subset_card_equals_cpu=card == cpu,
+                    subset_wall_s=dict(card=t1 - t0, cpu=t2 - t1),
+                    quality=quality, meets_quality_bar=good,
+                    nonzero_tau=taus_used)
+        if not (same and card == cpu and good
+                and taus_used == (name == "tau")):
+            failures.append(f"{name}: {rows}")
+        report[name] = rows
+    torch.cuda.empty_cache()
+    emit("train", nvidia_smi=smi, triplets=n, bootstrap=sub_n, ferns=f,
+         depth=settings.max_depth, cpu_subset=CPU_SUBSET,
+         dataset_build_s=build_s,
+         batch_cap_bytes=train_mod.BATCH_FERNS_BYTES_CAP,
+         stack_bytes=f * sub_n * 3 * 729, results=report, failures=failures)
+    if failures:
+        raise SystemExit(f"training failed: {failures}")
+
+
+def write_sintel_tree(root, rng, scenes=("alley_1", "market_5"), frames=2):
+    """A Sintel stereo training tree of ``make_scene(H, W)`` frames: 8-bit
+    clean frames, disparity PNGs (d = 4R + G/64), occlusion maps and empty
+    out-of-frame maps, written with the port's ``write_png``."""
+    from opengpc_tpu_torch.io import write_png
+    from opengpc_tpu_torch.utils import make_scene
+
+    tr = os.path.join(root, "training")
+    for scene in scenes:
+        for i in range(1, frames + 1):
+            left, right, disp, occ = make_scene(rng, H, W)
+            rgb = np.zeros((H, W, 3), np.uint8)
+            rgb[:, :, 0] = disp // 4
+            rgb[:, :, 1] = (disp % 4) * 64
+            for sub, img in (("clean_left", left), ("clean_right", right),
+                             ("disparities", rgb), ("occlusions", occ),
+                             ("outofframe", np.zeros((H, W), np.uint8))):
+                d = os.path.join(tr, sub, scene)
+                os.makedirs(d, exist_ok=True)
+                write_png(os.path.join(d, f"frame_{i:04d}.png"), img)
+
+
+def phase_workflow(td, oracle, paths, launches):
+    """The reference's offline workflow through the port's CLIs on a
+    Sintel-layout tree: ``python -m opengpc_tpu_torch.cli.extract --mode
+    stereo`` at its defaults, ``cli.train`` on the card at its defaults
+    (its forest equal to ``--device cpu``'s), then the one-call on the
+    tree's first pair with the fresh forest at the CLI's settings (the
+    masked route: one key-kernel launch), equal to the CPU pipeline and
+    through the oracle gate, and the fresh forest held to the quality bar
+    on a held-out scene."""
+    from opengpc_tpu_torch import InferenceSettings, load_forest, sparsematch
+    from opengpc_tpu_torch.cli.train import main as train_main
+    from opengpc_tpu_torch.io import load_triplets, read_gray
+
+    root = os.path.join(td, "sintel")
+    t0 = time.perf_counter()
+    write_sintel_tree(root, np.random.default_rng(31))
+    tree_s = time.perf_counter() - t0
+    trips = os.path.join(td, "triplets.bin")
+    forest = os.path.join(td, "fresh.txt")
+    forest_cpu = os.path.join(td, "fresh_cpu.txt")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "opengpc_tpu_torch.cli.extract", root, trips,
+         "--mode", "stereo", "--seed", "3"], cwd=REPO, capture_output=True,
+        text=True, timeout=300)
+    extract_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"cli.extract failed:\n{proc.stdout}{proc.stderr}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log:
+        rc = train_main([trips, forest, "--seed", "4"])
+        train_s = time.perf_counter() - t0
+        rc_cpu = train_main([trips, forest_cpu, "--seed", "4", "--device",
+                             "cpu"])
+    with open(forest) as a, open(forest_cpu) as b:
+        same_forest = a.read() == b.read()
+    scene = os.path.join(root, "training", "{}", "alley_1", "frame_0001.png")
+    lp, rp = scene.format("clean_left"), scene.format("clean_right")
+    settings = InferenceSettings(**SETTINGS_KW)
+    sup, counts = launches.run(
+        "workflow", lambda: sparsematch(lp, rp, forest, settings,
+                                        device="cuda"), {"fused_keys": 1})
+    left, right = read_gray(lp), read_gray(rp)
+    cpu = sparsematch(left, right, forest, settings, device="cpu")
+    ok_gate, gate = oracle_gate(oracle, left, right, forest, sup, settings)
+    quality, good = quality_vs_pretrained(load_forest(forest),
+                                          paths["defaultZeroForest"], 78)
+    report = dict(triplets=len(load_triplets(trips)), rc=[rc, rc_cpu],
+                  card_forest_equals_cpu=same_forest,
+                  supports_equal_cpu=bool(np.array_equal(sup, cpu)),
+                  oracle_gate=gate, quality=quality, meets_quality_bar=good)
+    ok = (rc == rc_cpu == 0 and same_forest and report["supports_equal_cpu"]
+          and ok_gate and good and len(sup) > 0)
+    emit("workflow", launches=counts, tree_s=tree_s, extract_s=extract_s,
+         train_s=train_s, extract_tail=proc.stdout.splitlines()[-1:],
+         train_tail=log.getvalue().splitlines()[-1:],
+         checks=report)
+    if not ok:
+        raise SystemExit(f"workflow failed: {report}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -1972,6 +2244,9 @@ def main():
         phase_native_decode(smi, paths)
         phase_pyramid(oracle, paths, launches)
         phase_stereomatch(paths, launches)
+        phase_mine_device()
+        phase_train(smi, paths)
+        phase_workflow(td, oracle, paths, launches)
         times = {"fused_keys": phase_times(smi)}
         phase_key_times(smi, masks)
         times.update(phase_new_times(smi, masks))

@@ -32,7 +32,11 @@ _SCALE_TO_CHAR = {SCALE_S: "s", SCALE_M: "m", SCALE_L: "l"}
 _CHAR_TO_SCALE = {v: k for k, v in _SCALE_TO_CHAR.items()}
 
 MAX_TESTS = 32   # inference filter-mask cap
+PATCH = 27       # patch side length
 PATCH_HALF = 13  # tests reach +-13 px: a 27x27 patch
+
+# sub-window half-sizes per scale: the 7x7, 17x17 and 27x27 windows
+SCALE_HALF = {SCALE_S: 3, SCALE_M: 8, SCALE_L: 13}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,3 +200,35 @@ def make_filter_mask(forest: Forest, max_tests: int = MAX_TESTS) -> FilterMask:
     tau = np.array([t.tau for t in tests], dtype=np.int32)
     ftype = 0 if forest.is_zero else 1
     return FilterMask(i_off=i_off, j_off=j_off, tau=tau, type=ftype)
+
+
+def truncate_forest(forest: Forest, max_tests: int) -> Forest:
+    """A forest containing exactly ``forest.flat_tests(max_tests)``: whole
+    ferns in file order, the boundary fern cut level-wise, empty trailing
+    ferns dropped, so the result serializes and round-trips like any other
+    forest.  It gives the same filter mask as ``make_filter_mask(forest,
+    max_tests)`` except that a tau forest whose kept prefix is all-zero
+    derives type 0 (the match results are the same: a tau test with tau
+    == 0 is the zero test)."""
+    if max_tests < 1:
+        raise ValueError(f"max_tests must be >= 1, got {max_tests}")
+    ferns: List[Fern] = []
+    left = max_tests
+    for f in forest.ferns:
+        if left <= 0:
+            break
+        take = f.tests[:left]
+        if take:
+            ferns.append(Fern(scale=f.scale, tests=tuple(take)))
+            left -= len(take)
+    return Forest(ferns=tuple(ferns))
+
+
+def patch_linear_index(ix: int, iy: int) -> int:
+    """Linear index of offset (ix, iy) inside a stored 27x27 training
+    patch.  Patches are stored transposed relative to image axes (byte
+    ``27*a + b`` holds image pixel (y + b - 13, x + a - 13)), and training
+    reads element ``(ix+13) + 27*(iy+13)`` for a test offset (ix, iy), so
+    the binary triplet format and trained forests stay interchangeable
+    with the reference."""
+    return (ix + PATCH_HALF) + PATCH * (iy + PATCH_HALF)

@@ -17,6 +17,7 @@ from opengpc_tpu.io.raw import write_raw
 
 import opengpc_tpu_torch as pt
 import opengpc_tpu_torch.infer as tinfer
+import opengpc_tpu_torch.mine as tmine
 import opengpc_tpu_torch.parallel as tparallel
 import opengpc_tpu_torch.pyramid as tpyramid
 from opengpc_tpu_torch.forest import Forest
@@ -310,8 +311,10 @@ def test_cuda_request_never_runs_on_cpu():
     pt.sparsematch, pt.extract_descriptors, pt.build_stereomatch,
     tpyramid.build_pyramid_sparsematch,
     tpyramid.build_pyramid_sparsematch_compact,
+    pt.train_forest, pt.train_fern, tmine.extract_triplets_device,
 ], ids=lambda fn: fn.__name__)
 def test_entry_points_default_to_the_card(fn):
-    """Every builder, the modules' base and the one-call entry points run
-    on the card unless the caller asks for the CPU."""
+    """Every builder, the modules' base, the one-call entry points, the
+    trainers and the device extractor run on the card unless the caller
+    asks for the CPU."""
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -31,7 +31,10 @@ def test_port_imports_no_jax():
             "opengpc_tpu_torch.ops.sort, opengpc_tpu_torch.ops.fused_match, "
             "opengpc_tpu_torch.ops.census, opengpc_tpu_torch.parallel, "
             "opengpc_tpu_torch.ops._build, opengpc_tpu_torch.pyramid, "
-            "opengpc_tpu_torch.io.png, opengpc_tpu_torch.io._host\n"
+            "opengpc_tpu_torch.io.png, opengpc_tpu_torch.io._host, "
+            "opengpc_tpu_torch.mine, opengpc_tpu_torch.train, "
+            "opengpc_tpu_torch.metrics, opengpc_tpu_torch.cli.extract, "
+            "opengpc_tpu_torch.cli.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'opengpc_tpu.')) or m == 'opengpc_tpu')\n"
             "assert not bad, bad\n"
