@@ -22,8 +22,13 @@ extraction against the numpy one, forest training on the card at ~10^6
 triplets (fern at a time equal to batched, the card's forest equal to the
 CPU's on a subset, each forest held to the pretrained one on a held-out
 scene), and the ``extract`` and ``train`` CLIs on a Sintel-layout tree
-whose fresh forest then matches through the key kernel.  Each path runs with every launch counter at 0
-and is read right after, so the run shows which kernels it went through.
+whose fresh forest then matches through the key kernel.  Then the
+``sparsematch`` CLI on PNG pairs (every contract, the pyramid, densify,
+both colormaps and the host matchers, each against ``--device cpu``'s
+files, the one-call and the oracle), its sequence mode over 32 pairs whose
+density switches (``--batch 1``, ``--batch 4``, ``--pyramid 3``) and
+densify on the card against the CPU.  Each path runs with every launch
+counter at 0 and is read right after, so the run shows which kernels it went through.
 Supports are checked against the native oracle (``cpp/build/oracle``;
 level by level on downscaled images for the pyramid), the CPU pipeline
 or the single-device module and, where the mode allows, the true
@@ -190,12 +195,15 @@ class Launches:
     def run(self, path, fn, expect):
         """Drive ``fn`` as the path named ``path``; fails unless each kernel
         in ``expect`` launched exactly its count there and every other
-        kernel none."""
+        kernel none.  ``expect`` may be a function of ``fn``'s result that
+        returns the counts (a count the run's own report sets)."""
         for name in KERNELS:
             wrapper(name).launches = 0
         out = fn()
         torch.cuda.synchronize()
         counts = {name: wrapper(name).launches for name in KERNELS}
+        if callable(expect):
+            expect = expect(out)
         for name, n in counts.items():
             self.total[name] += n
         want = {name: expect.get(name, 0) for name in KERNELS}
@@ -340,6 +348,7 @@ def device_profile(fn, iters, tries=3, warm=True):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms,
+                launches=sum(n for _, n in kernels.values()),
                 kernels=[[k[:70], us, n] for k, (us, n) in top[:12]],
                 whole=whole, usable=usable, lost_windows=lost + (not whole))
 
@@ -2214,6 +2223,526 @@ def phase_workflow(td, oracle, paths, launches):
         raise SystemExit(f"workflow failed: {report}")
 
 
+CLI = "opengpc_tpu_torch.cli.sparsematch"
+CLI_CAPACITY = str(1 << 20)  # above any pair's support count: nothing trimmed
+TTOTAL_REPEATS = 20
+
+
+def run_cli(argv):
+    """The sparsematch CLI in this process: (rc, stdout, stderr)."""
+    from opengpc_tpu_torch.cli.sparsematch import main
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def tt_ms(stdout):
+    """The ``tTotal`` ms (best of ``--repeats``) a CLI run printed."""
+    line = [ln for ln in stdout.splitlines() if ln.startswith("tTotal:")][0]
+    return float(line.split()[1])
+
+
+def notices(err):
+    """The CLI's routing notices (auto contract, overflow, resume)."""
+    return [ln for ln in err.splitlines()
+            if "contract" in ln or "overflow:" in ln]
+
+
+def dir_bytes(d):
+    return {name: open(os.path.join(d, name), "rb").read()
+            for name in sorted(os.listdir(d))
+            if os.path.isfile(os.path.join(d, name))}
+
+
+def cli_cases():
+    """(name, scene, forest, extra argv, kernel launches of one call
+    without an overflow, those the overflow fallback adds) of
+    ``cli_single``.  The auto contract takes row form on the dense pair
+    and, through the density probe, masked-compact on the sparse one."""
+    keys = {"fused_keys": 1}
+    return [
+        ("default_dense", "dense", "defaultZeroForest", [], keys, keys),
+        ("default_dense_tau", "dense", "defaultTauForest", [], keys, keys),
+        ("default_sparse_densify", "sparse", "defaultZeroForest",
+         ["--densify", "DENSE"], keys, keys),
+        ("viz_reference_densify", "dense", "defaultZeroForest",
+         ["--viz-compat", "reference", "--densify", "DENSE"], keys, keys),
+        ("global_dense", "dense", "defaultZeroForest", ["--global-mode"],
+         keys, keys),
+        ("global_sparse", "sparse", "defaultZeroForest", ["--global-mode"],
+         keys, keys),
+        ("flat", "dense", "defaultZeroForest", ["--contract", "flat"], keys,
+         keys),
+        ("rows", "dense", "defaultZeroForest", ["--contract", "rows"], keys,
+         keys),
+        ("masked_densify", "dense", "defaultZeroForest",
+         ["--contract", "masked", "--densify", "DENSE"], keys, keys),
+        ("masked_compact_sparse", "sparse", "defaultZeroForest",
+         ["--contract", "masked-compact"], keys, keys),
+        ("masked_compact_dense", "dense", "defaultZeroForest",
+         ["--contract", "masked-compact", "--densify", "DENSE"], keys, keys),
+        ("global_rows", "dense", "defaultZeroForest",
+         ["--global-mode", "--contract", "global-rows"], keys, keys),
+        ("global_compact_dense", "dense", "defaultZeroForest",
+         ["--global-mode", "--contract", "global-compact"], keys, keys),
+        ("pyramid3_dense", "dense", "defaultZeroForest", ["--pyramid", "3"],
+         {"fused_keys": 3}, {"fused_keys": 3}),
+        ("pyramid3_sparse", "sparse", "defaultZeroForest",
+         ["--pyramid", "3"], {"fused_keys": 3}, {"fused_keys": 3}),
+        ("max_tests17", "dense", "defaultZeroForest", ["--max-tests", "17"],
+         keys, keys),
+        ("quirk", "sparse", "defaultZeroForest", ["--matcher", "quirk"],
+         {"fused_codes": 2}, {}),
+        ("hashmatch", "sparse", "defaultZeroForest",
+         ["--matcher", "hashmatch"], {"fused_codes": 2}, {}),
+    ]
+
+
+def oracle_lines(oracle, left, right, forest_file, mode):
+    """The oracle's supports at the CLI's defaults in matcher ``mode`` (1
+    quirk, 2 hashmatch), in its order."""
+    from opengpc_tpu_torch.io import write_raw
+
+    with tempfile.TemporaryDirectory() as td:
+        lp, rp, op = (os.path.join(td, n) for n in ("l.raw", "r.raw", "o.txt"))
+        write_raw(lp, left)
+        write_raw(rp, right)
+        subprocess.run([oracle, "sparsematch", forest_file, lp, rp, op, "5",
+                        "0", "128", "1", str(mode)], check=True)
+        return np.loadtxt(op, dtype=np.int64).reshape(-1, 3)
+
+
+def top_level_import_s(stderr):
+    """Seconds of the top-level imports that ``python -X importtime``
+    printed (a nested import's name is indented under its importer)."""
+    total = 0
+    for ln in stderr.splitlines():
+        parts = ln.split("|")
+        if (ln.startswith("import time:") and len(parts) == 3
+                and parts[1].strip().isdigit()
+                and not parts[2].startswith("  ")):
+            total += int(parts[1])
+    return total / 1e6
+
+
+def write_pair_pngs(td, name, left, right):
+    from opengpc_tpu_torch.io import write_png
+
+    out = []
+    for side, img in (("l", left), ("r", right)):
+        out.append(os.path.join(td, f"{name}_{side}.png"))
+        write_png(out[-1], img)
+    return out
+
+
+def phase_cli_single(td, oracle, paths, launches):
+    """``python -m opengpc_tpu_torch.cli.sparsematch`` on one 436x1024
+    pair (dense and sparse, PNGs written by the port): every contract,
+    ``--global-mode``, ``--pyramid 3``, ``--max-tests 17``, ``--densify``,
+    ``--viz-compat reference`` and the host matchers, in this process
+    through ``main([...])`` with the launch counters at 0 (one key-kernel
+    launch a call, one a level, the overflow fallback's on top; one
+    code-kernel launch an image for the host matchers).  Each card run's
+    files equal ``--device cpu``'s byte for byte (supports, disparity.png,
+    the densify PNG) and its notices the CPU's; its supports equal the
+    one-call's on the card as sets and pass the oracle gate (the pyramid:
+    the one-call at levels 3; the host matchers: the oracle's quirk and
+    hashmatch modes).  The sparse pair must take a compact contract
+    through the probe, the dense pair forced onto masked-compact its
+    overflow fallback.  Then a whole CLI process at ``--repeats 20`` in a
+    subprocess (its wall, and its imports from ``-X importtime``), and
+    ``tTotal`` best of 20 in process."""
+    from opengpc_tpu_torch import (InferenceSettings, load_forest,
+                                   make_filter_mask, sparsematch)
+    from opengpc_tpu_torch.io import read_supports
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    scenes = {"dense": make_pair(H, W, TRUE_DISP),
+              "sparse": make_sparse_pair(H, W, TRUE_DISP, density=0.15)}
+    files = {s: write_pair_pngs(td, f"cli_{s}", *p) for s, p in scenes.items()}
+    failures, report, tt = [], {}, {}
+    for name, scene, forest, extra, base, fallback in cli_cases():
+        left, right = scenes[scene]
+        runs = {}
+        for device in ("cpu", "cuda"):
+            d = os.path.join(td, f"cli_{name}_{device}")
+            os.makedirs(d)
+            argv = [paths[forest], *files[scene], "--capacity", CLI_CAPACITY,
+                    "--out", os.path.join(d, "d.png"), "--supports-out",
+                    os.path.join(d, "s.txt"), "--device", device] + [
+                os.path.join(d, "dense.png") if a == "DENSE" else a
+                for a in extra]
+            if device == "cpu":
+                rc, out, err = run_cli(argv)
+                over = "overflow:" in err
+                expect = {k: base.get(k, 0) + (fallback.get(k, 0) if over
+                                               else 0)
+                          for k in set(base) | set(fallback)}
+            else:
+                (rc, out, err), counts = launches.run(
+                    f"cli_single/{name}", lambda: run_cli(argv), expect)
+            runs[device] = (rc, err, dir_bytes(d))
+        (rc_c, err_c, f_c), (rc_g, err_g, f_g) = runs["cpu"], runs["cuda"]
+        sup = read_supports(os.path.join(td, f"cli_{name}_cuda", "s.txt"))
+        gmode = "--global-mode" in extra
+        settings = InferenceSettings(gradient_threshold=5, disp_high=128,
+                                     vertical_tolerance=0,
+                                     epipolar_mode=not gmode,
+                                     capacity=int(CLI_CAPACITY))
+        if "--matcher" in extra:
+            mode = 1 if "quirk" in extra else 2
+            want = oracle_lines(oracle, left, right, paths[forest], mode)
+            ok_sup = (bool(np.array_equal(np.sort(support_keys(sup)),
+                                          support_keys(want)))
+                      if mode == 1 else bool(np.array_equal(sup, want)))
+            check = dict(oracle=len(want), equals_oracle_mode=ok_sup)
+        else:
+            mask = (make_filter_mask(load_forest(paths[forest]), 17)
+                    if "--max-tests" in extra else paths[forest])
+            levels = 3 if "--pyramid" in extra else 1
+            one = sparsematch(left, right, mask, settings, device="cuda",
+                              levels=levels)[:, :3]
+            ok_sup = bool(np.array_equal(support_keys(sup),
+                                         support_keys(one)))
+            check = dict(equals_one_call=ok_sup)
+            if levels == 1 and "--max-tests" not in extra:
+                ok_gate, gate = oracle_gate(oracle, left, right,
+                                            paths[forest], sup, settings)
+                ok_sup = ok_sup and ok_gate
+                check["oracle_gate"] = gate
+        same_files = f_c == f_g and "d.png" in f_g
+        routed = {"default_sparse_densify": "chunk-compacted masked",
+                  "pyramid3_sparse": "chunk-compacted pyramid",
+                  "masked_compact_dense": "masked-compact overflow",
+                  "global_compact_dense": "global-compact overflow"}
+        took = routed.get(name, "") in err_g
+        tt[name] = tt_ms(out)
+        report[name] = dict(check, supports=len(sup), rc=[rc_c, rc_g],
+                            files_equal_cpu=same_files,
+                            files=sorted(f_g), notices=notices(err_g),
+                            notices_equal_cpu=err_c == err_g,
+                            routed=took, launches=counts)
+        if not (rc_c == rc_g == 0 and ok_sup and same_files and took
+                and err_c == err_g and len(sup)):
+            failures.append(f"{name}: {report[name]}")
+    # one whole CLI process, its imports timed by the interpreter
+    d = os.path.join(td, "cli_process")
+    os.makedirs(d)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", CLI,
+         paths["defaultZeroForest"], *files["dense"], "--capacity",
+         CLI_CAPACITY, "--repeats", str(TTOTAL_REPEATS), "--out",
+         os.path.join(d, "d.png"), "--supports-out",
+         os.path.join(d, "s.txt")], cwd=REPO, env=env, capture_output=True,
+        text=True, timeout=300)
+    process_wall = time.perf_counter() - t0
+    import_s = top_level_import_s(proc.stderr)
+    same = (proc.returncode == 0 and dir_bytes(d) == dir_bytes(
+        os.path.join(td, "cli_default_dense_cuda")))
+    if not same:
+        failures.append(f"cli process: rc {proc.returncode}, files equal "
+                        f"{same}\n{proc.stderr[-3000:]}")
+    timed = {}
+    for name in ("default_dense", "default_sparse_densify", "masked_densify",
+                 "global_dense", "pyramid3_dense"):
+        cname, scene, forest, extra = [c for c in cli_cases()
+                                       if c[0] == name][0][:4]
+        d = os.path.join(td, f"cli_t_{name}")
+        os.makedirs(d)
+        argv = [paths[forest], *files[scene], "--capacity", CLI_CAPACITY,
+                "--repeats", str(TTOTAL_REPEATS), "--out",
+                os.path.join(d, "d.png")] + [
+            a for a in extra if a not in ("--densify", "DENSE")]
+        timed[name] = tt_ms(run_cli(argv)[1])
+    emit("cli_single", nvidia_smi=smi_line(), shape=[H, W],
+         process_wall_s=process_wall, process_import_s=import_s,
+         process_stdout=proc.stdout.splitlines(),
+         ttotal_ms_best_of_20=timed, ttotal_ms_single_call=tt,
+         checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"cli_single failed: {failures}")
+
+
+SEQ_SPARSE_HEAD, SEQ_DENSE, SEQ_SPARSE_TAIL = 8, 16, 8
+
+# the builders the sparsematch CLI makes its matchers with, and the
+# key-kernel launches each call of such a matcher makes at 436x1024 (one a
+# pair, or a --batch stack of pairs; one a level for the pyramids, whose
+# level count is the builders' third argument)
+CLI_BUILDERS = (
+    ("opengpc_tpu_torch.cli.sparsematch", (
+        "build_sparsematch", "build_sparsematch_rows",
+        "build_sparsematch_masked", "build_sparsematch_masked_compact",
+        "build_sparsematch_global_rows", "build_sparsematch_global_compact"),
+     lambda args: 1),
+    ("opengpc_tpu_torch.pyramid", (
+        "build_pyramid_sparsematch", "build_pyramid_sparsematch_compact"),
+     lambda args: args[2]),
+)
+
+
+@contextlib.contextmanager
+def counted_matchers():
+    """Counts the calls of every matcher the sparsematch CLI builds while
+    the context is open: yields ``{"dispatches": calls, "fused_keys": the
+    key-kernel launches those calls should make}``.  The CLI's sequence
+    mode chooses between a stacked dispatch, single frames and the direct
+    full-width fallback as the hysteresis trips on its writer thread, so
+    its launch count is read from its own calls."""
+    import importlib
+
+    calls = {"dispatches": 0, "fused_keys": 0}
+    saved = []
+
+    def counting(build, per_call):
+        def counted_build(*args, **kw):
+            match, n = build(*args, **kw), per_call(args)
+
+            def counted(*frames):
+                calls["dispatches"] += 1
+                calls["fused_keys"] += n
+                return match(*frames)
+
+            return counted
+
+        return counted_build
+
+    try:
+        for module, names, per_call in CLI_BUILDERS:
+            mod = importlib.import_module(module)
+            for name in names:
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, counting(saved[-1][2], per_call))
+        yield calls
+    finally:
+        for mod, name, build in saved:
+            setattr(mod, name, build)
+
+
+def seq_frames():
+    """32 pairs at 436x1024: 8 sparse, 16 dense, 8 sparse (the density
+    switches twice, so the probe picks compact, the dense stretch
+    overflows and the hysteresis routes it, and compact resumes)."""
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    kinds = (["sparse"] * SEQ_SPARSE_HEAD + ["dense"] * SEQ_DENSE
+             + ["sparse"] * SEQ_SPARSE_TAIL)
+    return [make_sparse_pair(H, W, TRUE_DISP, density=0.15, seed=400 + i)
+            if k == "sparse" else make_pair(H, W, TRUE_DISP, seed=400 + i)
+            for i, k in enumerate(kinds)], kinds
+
+
+def seq_rate(stdout, n):
+    """(frames/s over the run, frames/s over its second half) from the
+    CLI's report lines."""
+    total = [ln for ln in stdout.splitlines() if " pairs, " in ln][0]
+    half = [ln for ln in stdout.splitlines() if ln.startswith("steady")][0]
+    ms = float(total.split(" supports, ")[1].split(" ms")[0])
+    half_ms = float(half.split(": ")[1].split(" ms")[0])
+    return n / (ms / 1e3), (n - n // 2) / (half_ms / 1e3)
+
+
+def phase_cli_sequence(td, launches):
+    """Sequence mode on the card: a directory of 32 436x1024 pairs (16
+    dense, 16 sparse, the density switching mid-sequence) at ``--batch 1``,
+    ``--batch 4`` and ``--pyramid 3`` in this process; every frame's
+    ``supports_NNNN.txt`` equals the single-pair CLI's on that frame (as a
+    set: the contracts order a row differently), the hysteresis notices
+    are bounded as the JAX package's tests bound them, and ``--densify``
+    on an 8-frame window (4 sparse, 4 dense) writes the same
+    ``dense_NNNN.png`` and supports files as ``--device cpu``.  Every card
+    run goes through ``Launches.run``: a single-pair run launches the key
+    kernel once a level, twice with its overflow notice; a sequence run
+    once a level for each matcher call it made (``counted_matchers``),
+    which at ``--batch 1`` must be one a frame and one an overflow notice.
+    Reports frames/s over each run and over its second half."""
+    from opengpc_tpu_torch.io import read_supports, write_png
+
+    frames, kinds = seq_frames()
+    ldir, rdir = os.path.join(td, "seq_l"), os.path.join(td, "seq_r")
+    wdir = [os.path.join(td, "seq_win_l"), os.path.join(td, "seq_win_r")]
+    for dd in [ldir, rdir] + wdir:
+        os.makedirs(dd)
+    win = range(SEQ_SPARSE_HEAD - 4, SEQ_SPARSE_HEAD + 4)
+    t0 = time.perf_counter()
+    for i, (left, right) in enumerate(frames):
+        for dd, img in ((ldir, left), (rdir, right)):
+            write_png(os.path.join(dd, f"f{i:04d}.png"), img)
+        if i in win:
+            for dd, src in zip(wdir, (ldir, rdir)):
+                os.link(os.path.join(src, f"f{i:04d}.png"),
+                        os.path.join(dd, f"f{i:04d}.png"))
+    write_s = time.perf_counter() - t0
+    forest = os.path.join(REPO, "forests", "defaultZeroForest.txt")
+    n = len(frames)
+    failures, report = [], {}
+
+    def single_sets(extra, levels):
+        out = []
+        for i in range(n):
+            d = os.path.join(td, "seq_single")
+            os.makedirs(d, exist_ok=True)
+            argv = [forest, os.path.join(ldir, f"f{i:04d}.png"),
+                    os.path.join(rdir, f"f{i:04d}.png"), "--capacity",
+                    CLI_CAPACITY, "--out", os.path.join(d, "d.png"),
+                    "--supports-out", os.path.join(d, "s.txt")] + extra
+            (rc, _, _), _ = launches.run(
+                f"cli_sequence/single{levels}", lambda: run_cli(argv),
+                lambda r: {"fused_keys": levels * (1 + r[2].count(
+                    "overflow:"))})
+            if rc:
+                raise SystemExit(f"single-pair CLI rc {rc} on frame {i}")
+            out.append(support_keys(read_supports(os.path.join(d, "s.txt"))))
+        return out
+
+    def sequence(name, argv):
+        """One sequence run on the card: (rc, stdout, stderr, its matcher
+        calls, its kernel launches)."""
+        with counted_matchers() as calls:
+            (rc, out, err), counts = launches.run(
+                f"cli_sequence/{name}", lambda: run_cli(argv),
+                lambda _: {"fused_keys": calls["fused_keys"]})
+        return rc, out, err, calls["dispatches"], counts
+
+    singles = {"plain": single_sets([], 1),
+               "pyramid3": single_sets(["--pyramid", "3"], 3)}
+    for name, extra, want in (("batch1", ["--batch", "1"], "plain"),
+                              ("batch4", ["--batch", "4"], "plain"),
+                              ("pyramid3", ["--pyramid", "3"], "pyramid3")):
+        out_dir = os.path.join(td, f"seq_{name}")
+        rc, out, err, calls, counts = sequence(
+            name, [forest, ldir, rdir, "--out",
+                   os.path.join(out_dir, "d.png")] + extra)
+        got = [support_keys(read_supports(
+            os.path.join(out_dir, f"supports_{i:04d}.txt"))) for i in range(n)]
+        bad = [i for i in range(n)
+               if not np.array_equal(got[i], singles[want][i])]
+        rate, steady = seq_rate(out, n) if rc == 0 else (None, None)
+        ovf = err.count("overflow:")
+        report[name] = dict(rc=rc, frames_differ=bad, frames_per_s=rate,
+                            steady_frames_per_s=steady,
+                            supports=int(sum(g.size for g in got)),
+                            overflow_notices=ovf, matcher_calls=calls,
+                            launches=counts,
+                            resumed="resuming the compact contract" in err,
+                            probe_picked_compact="chunk-compacted" in err,
+                            stdout=out.splitlines()[-2:])
+        hysteresis = (name != "batch1"
+                      or (1 <= ovf <= 4 and report[name]["resumed"]))
+        # --batch 1 dispatches each frame alone, and re-runs an overflow
+        calls_ok = (calls == n + ovf if name == "batch1"
+                    else (n + 3) // 4 + ovf <= calls <= n + ovf)
+        if rc or bad or not hysteresis or not calls_ok \
+                or not report[name]["probe_picked_compact"]:
+            failures.append(f"{name}: {report[name]}")
+    dens = {}
+    for device in ("cuda", "cpu"):
+        out_dir = os.path.join(td, f"seq_dense_{device}")
+        argv = [forest, *wdir, "--out", os.path.join(out_dir, "d.png"),
+                "--densify", os.path.join(out_dir, "dense"), "--device",
+                device]
+        if device == "cuda":
+            rc, _, _, calls, counts = sequence("densify_window", argv)
+        else:
+            rc = run_cli(argv)[0]
+        dens[device] = (rc, dir_bytes(out_dir),
+                        dir_bytes(os.path.join(out_dir, "dense")))
+    same = dens["cuda"] == dens["cpu"] and len(dens["cuda"][2]) == len(win)
+    report["densify_window"] = dict(frames=len(win), equal_cpu=same,
+                                    rc=[dens["cuda"][0], dens["cpu"][0]],
+                                    matcher_calls=calls, launches=counts)
+    if not same:
+        failures.append(f"densify window: {report['densify_window']}")
+    emit("cli_sequence", nvidia_smi=smi_line(), shape=[H, W], frames=n,
+         kinds="".join(k[0] for k in kinds), png_write_s=write_s,
+         checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"cli_sequence failed: {failures}")
+
+
+def phase_densify(smi):
+    """Densify at 436x1024 on the dense pair's masked buffer: for both
+    methods, ``densify_from_masked`` (the default seeding) and each
+    seeding on the card equal ``densify_supports(masked_supports_to_numpy(
+    ...))`` on the card, and each equals the CPU, bit for bit; each
+    seeding timed with CUDA events and the profiler's device time, with
+    its kernel launches a call; beside them the supports path (upload
+    included) and the CLI's density probe."""
+    from opengpc_tpu_torch import (InferenceSettings, build_sparsematch_masked,
+                                   masked_supports_to_numpy)
+    from opengpc_tpu_torch.cli.sparsematch import _probe_density
+    from opengpc_tpu_torch.densify import (DEFAULT_SEEDING,
+                                           _densify_from_masked,
+                                           densify_from_masked,
+                                           densify_supports)
+    from opengpc_tpu_torch.utils import make_pair
+
+    settings = InferenceSettings(**SETTINGS_KW)
+    left, right = make_pair(H, W, TRUE_DISP)
+    forest = os.path.join(REPO, "forests", "defaultZeroForest.txt")
+    m = build_sparsematch_masked(load_mask(forest), settings, device="cuda")
+    buf, counts = m(torch.from_numpy(left).cuda(),
+                    torch.from_numpy(right).cuda())
+    dh = settings.disp_high
+    sup = masked_supports_to_numpy(buf, counts, dh)
+    buf_cpu = buf.cpu()
+    failures, report = [], {}
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    for method in ("multigrid", "jacobi"):
+        iters = 10 if method == "multigrid" else 64
+        want = densify_supports(sup, (H, W), method=method, device="cuda")
+        ok = (same(densify_supports(sup, (H, W), method=method,
+                                    device="cpu"), want)
+              and same([t.cpu().numpy() for t in densify_from_masked(
+                  buf, counts, dh, method=method, device="cuda")], want))
+        for seed in ("scatter", "sortmerge"):
+            def run(seed=seed, method=method, iters=iters):
+                return _densify_from_masked(buf, dh, iters, seed_impl=seed,
+                                            method=method)
+
+            got = [t.cpu().numpy() for t in run()]
+            cpu = [t.numpy() for t in _densify_from_masked(
+                buf_cpu, dh, iters, seed_impl=seed, method=method)]
+            equal = ok and same(got, want) and same(cpu, want)
+            # one window of 3 calls: ~1,600 launches a call, so a lost
+            # event or two are within the summed device ms
+            prof = device_profile(run, 3, tries=1)
+            report[f"{method}/{seed}"] = dict(
+                equal_supports_path_and_cpu=equal, filled=int(got[1].sum()),
+                events_ms=cuda_ms(run, 5), device_ms=prof["device_ms"],
+                wall_ms=prof["wall_ms"], busy_share=prof["busy_share"],
+                launches_per_call=prof["launches"], whole=prof["whole"],
+                top=prof["kernels"][:4])
+            if not equal or not got[1].any():
+                failures.append(f"{method}/{seed}")
+        report[f"{method}/supports_path"] = dict(
+            host_ms_median=median_ms(lambda: densify_supports(
+                sup, (H, W), method=method, device="cuda"), 5))
+    dev = torch.device("cuda")
+    report["probe"] = dict(
+        density=_probe_density(settings, left, right, dev),
+        host_ms_median=median_ms(
+            lambda: _probe_density(settings, left, right, dev), 20))
+    emit("densify", nvidia_smi=smi, shape=[H, W], supports=len(sup),
+         default_seeding=DEFAULT_SEEDING, checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"densify failed: {failures}")
+
+
+def load_mask(path):
+    from opengpc_tpu_torch import load_forest, make_filter_mask
+
+    return make_filter_mask(load_forest(path))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
@@ -2252,6 +2781,11 @@ def main():
         times.update(phase_new_times(smi, masks))
         times.update(phase_slab_times(smi, masks))
         phase_pyramid_times(smi, masks)
+        # after the timing phases: densify's profiler windows hold ~1,600
+        # launches a call, and the kernels line's windows come first
+        phase_cli_single(td, oracle, paths, launches)
+        phase_cli_sequence(td, launches)
+        phase_densify(smi)
     missing = [k for k, n in launches.total.items() if n == 0]
     if missing:
         raise SystemExit(f"no path launched {missing}")

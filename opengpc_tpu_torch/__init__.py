@@ -24,6 +24,15 @@ seed and inputs the triplet files and forest text are byte-identical to
 the JAX package's.  The package imports torch and numpy and never JAX;
 importing it builds and loads no kernel and no host library.
 
+The front door is the ``sparsematch`` CLI, as in the JAX package: ``python
+-m opengpc_tpu_torch.cli.sparsematch FOREST L.png R.png`` matches a pair on
+the card (every contract, ``--pyramid``, ``--densify``, ``--viz-compat``,
+the host matchers ``--matcher quirk|hashmatch``), or every pair of two
+frame directories in sequence mode.  ``densify_supports`` and
+``densify_from_masked`` (``densify``) turn supports or the masked buffer
+into a dense disparity map on the card, bit for bit JAX's; ``viz``,
+``types`` and ``io.supports`` are numpy copies.
+
 >>> from opengpc_tpu_torch import InferenceSettings, sparsematch
 >>> supports = sparsematch(left, right, "forests/defaultZeroForest.txt")
 >>> from_files = sparsematch("left.png", "right.png",
@@ -53,15 +62,21 @@ from opengpc_tpu_torch.infer import (build_sparsematch,
                                      masked_supports_to_numpy,
                                      row_supports_to_numpy, sparsematch,
                                      supports_to_numpy)
+from opengpc_tpu_torch.densify import densify_from_masked, densify_supports
 from opengpc_tpu_torch.io.triplets import load_triplets, save_triplets
 from opengpc_tpu_torch.train import train_fern, train_forest
+from opengpc_tpu_torch.types import Correspondence, Descriptor, Point, Support
 
 __version__ = "0.5.0"
 
 __all__ = [
+    "Correspondence",
+    "Descriptor",
     "ForestSettings",
     "InferenceSettings",
     "OptimizerSettings",
+    "Point",
+    "Support",
     "__version__",
     "build_sparsematch",
     "build_sparsematch_global_compact",
@@ -70,6 +85,8 @@ __all__ = [
     "build_sparsematch_masked_compact",
     "build_sparsematch_rows",
     "build_stereomatch",
+    "densify_from_masked",
+    "densify_supports",
     "extract_descriptors",
     "fern_factory",
     "filter_mask_from_numpy",

@@ -69,6 +69,10 @@ _SIGNATURES = {  # name -> (argument types, result type)
     # ... row_counts (h,) before out, nthreads last
     "ogpc_masked_decode_par": ([_I32P, _I64, _I64, _I32, _I32, _I32P, _I32P,
                                 _I64, _I32], _I64),
+    # path, (n, 3) int32 rows, n; the threaded writer takes nthreads last
+    "ogpc_write_supports": ([ctypes.c_char_p, _I32P, _I64], ctypes.c_int),
+    "ogpc_write_supports_par": ([ctypes.c_char_p, _I32P, _I64, _I32],
+                                ctypes.c_int),
 }
 
 

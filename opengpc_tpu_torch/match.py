@@ -19,10 +19,15 @@ the masked and global contracts (``match_epipolar_masked_compact``,
 ``match_global_rows_compact``) with their overflow flag.  The sorts are
 ``torch.sort``, the counterpart of XLA's ``lax.sort``; the bitonic row
 sort of ``ops.sort`` is the ``sort_impl="bitonic"`` alternative.
+
+The host matchers ``match_reference_quirk`` and ``match_hashmatch`` are
+numpy copies of the JAX package's: the reference's exact sweep and its
+hash-table matcher, bug for bug, on descriptor lists.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -612,3 +617,131 @@ def _strided_chunk_compact(key_img, pos_img, chunk: int, k: int,
     overflow = ((kc < SENTINEL_BASE).sum(dim=1) > k).any()
     ks, ps = _sort_with(kc, _strided_chunks(pos_img, h, chunk, nc))
     return ks[:, :k].reshape(-1), ps[:, :k].reshape(-1), overflow
+
+
+def match_reference_quirk(
+    desc_src, desc_tar, epipolar: bool = False
+):
+    """Host-side, bug-compatible reimplementation of the reference's exact
+    sweep (findCorrespondences, inference.hpp:227-254), including its edge
+    quirks: a match landing on the last target element is never emitted,
+    and a duplicate pair occupying the last two target slots skips its
+    uniqueness check.
+
+    For users who need byte-identical behavior to the reference binary;
+    the on-device matchers implement the clean unique-collision rule.
+
+    ``desc_*``: (n, 3) int arrays of (x, y, state) rows (e.g. from
+    infer.extract_descriptors).  Returns (m, 4) int array of
+    (sx, sy, tx, ty).
+    """
+    def keyed(d):
+        d = np.asarray(d, np.int64)
+        state = d[:, 2].astype(np.uint64)
+        if epipolar:
+            state = state | (d[:, 1].astype(np.uint64) << np.uint64(32))
+        order = np.argsort(state, kind="stable")
+        return state[order], d[order, 0], d[order, 1]
+
+    s_state, s_x, s_y = keyed(desc_src)
+    t_state, t_x, t_y = keyed(desc_tar)
+    out = []
+    n = len(t_state)
+    if n == 0:
+        return np.zeros((0, 4), np.int32)
+    j = 0
+    i = 0
+    while i < len(s_state):
+        unique = True
+        while i + 1 < len(s_state) and s_state[i] == s_state[i + 1]:
+            i += 1
+            unique = False
+        if unique:
+            while j < n - 1 and t_state[j] < s_state[i]:
+                j += 1
+            if (
+                j != n - 1
+                and t_state[j] == s_state[i]
+                and (j + 1 == n - 1 or t_state[j] != t_state[j + 1])
+            ):
+                out.append((s_x[i], s_y[i], t_x[j], t_y[j]))
+        i += 1
+    return np.asarray(out, np.int32).reshape(-1, 4)
+
+
+def match_hashmatch(
+    desc_src, desc_tar, epipolar: bool = False,
+    index_size: int = 214673, bucket_cap: int = 10,
+):
+    """Host-side, bug-compatible emulation of the reference's hash-table
+    matcher (``useHashtable=true``; hashmatch.hpp:42-273, instantiated with
+    214,673 buckets at inference.hpp:210-211) — the one matching behavior
+    class the on-device sort matcher deliberately does NOT implement.
+
+    Semantics: descriptors are inserted src-list first then tar-list into
+    ``state % index_size`` buckets; each bucket is kept sorted by state
+    (stable after equals) and CAPPED at ``bucket_cap`` elements — later
+    arrivals are silently dropped (hashmatch.hpp:93-98).  A per-bucket
+    adjacent sweep then emits states present exactly twice and from
+    different images (hashmatch.hpp:162-197), with two pinned edge
+    behaviors: an early bucket return when an equal third element is the
+    bucket's last, and a skip-ahead after a same-image pair followed by a
+    cross-image element.
+
+    This diverges from the clean unique-collision rule: the bucket cap can
+    both create matches (dropping the duplicates that would make a state
+    non-unique — e.g. a state occurring 9x in src and 30x in tar keeps
+    9 src + 1 tar and emits a bogus pair) and destroy them (dropping one
+    element of a genuine pair in an overflowing bucket).  Differentially
+    tested against the oracle's ``hashmatch`` command and, transitively,
+    the real reference binary (tests/test_reference_binary.py).
+
+    ``desc_*``: (n, 3) int arrays of (x, y, state) rows in candidate scan
+    order (e.g. from infer.extract_descriptors).  Returns (m, 4) int array
+    of (sx, sy, tx, ty) unfiltered pairs, like match_reference_quirk.
+    """
+    def states(d):
+        d = np.asarray(d, np.int64)
+        s = d[:, 2].astype(np.uint64)
+        if epipolar:
+            s = s | (d[:, 1].astype(np.uint64) << np.uint64(32))
+        return s, d[:, 0], d[:, 1]
+
+    buckets = {}
+
+    def insert(state, x, y, is_src):
+        b = buckets.setdefault(int(state % np.uint64(index_size)), [])
+        if len(b) >= bucket_cap:
+            return
+        pos = 0
+        while pos < len(b) and b[pos][0] <= state:
+            pos += 1
+        b.insert(pos, (int(state), int(x), int(y), is_src))
+
+    for sd, is_src in ((desc_src, True), (desc_tar, False)):
+        s, x, y = states(sd)
+        for k in range(len(s)):
+            insert(s[k], x[k], y[k], is_src)
+
+    out = []
+    for key in sorted(buckets):
+        b = buckets[key]
+        n = len(b)
+        idx = 0
+        while idx < n:
+            prev = idx
+            idx += 1
+            if idx < n and b[prev][0] == b[idx][0]:
+                if b[prev][3] != b[idx][3]:
+                    if idx + 1 < n:
+                        if b[idx + 1][0] != b[idx][0]:
+                            out.append((b[prev][1], b[prev][2],
+                                        b[idx][1], b[idx][2]))
+                        if idx + 2 >= n:
+                            break  # "checked the last triplet, leave"
+                    else:
+                        out.append((b[prev][1], b[prev][2],
+                                    b[idx][1], b[idx][2]))
+                elif idx + 1 < n and b[idx][3] != b[idx + 1][3]:
+                    idx += 1  # skip the false same-image pair
+    return np.asarray(out, np.int32).reshape(-1, 4)

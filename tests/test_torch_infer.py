@@ -16,6 +16,8 @@ import opengpc_tpu.infer as jinfer
 from opengpc_tpu.io.raw import write_raw
 
 import opengpc_tpu_torch as pt
+import opengpc_tpu_torch.cli.sparsematch as tsparsematch_cli
+import opengpc_tpu_torch.densify as tdensify
 import opengpc_tpu_torch.infer as tinfer
 import opengpc_tpu_torch.mine as tmine
 import opengpc_tpu_torch.parallel as tparallel
@@ -312,9 +314,15 @@ def test_cuda_request_never_runs_on_cpu():
     tpyramid.build_pyramid_sparsematch,
     tpyramid.build_pyramid_sparsematch_compact,
     pt.train_forest, pt.train_fern, tmine.extract_triplets_device,
+    tdensify.densify_supports, tdensify.densify_from_masked,
+    tsparsematch_cli.main,
 ], ids=lambda fn: fn.__name__)
 def test_entry_points_default_to_the_card(fn):
     """Every builder, the modules' base, the one-call entry points, the
-    trainers and the device extractor run on the card unless the caller
-    asks for the CPU."""
+    trainers, the device extractor, densify and the sparsematch CLI's
+    ``--device`` run on the card unless the caller asks for the CPU."""
+    if fn is tsparsematch_cli.main:
+        args = tsparsematch_cli._parser().parse_args(["f.txt", "l", "r"])
+        assert args.device == "cuda"
+        return
     assert inspect.signature(fn).parameters["device"].default == "cuda"

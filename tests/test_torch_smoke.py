@@ -34,7 +34,10 @@ def test_port_imports_no_jax():
             "opengpc_tpu_torch.io.png, opengpc_tpu_torch.io._host, "
             "opengpc_tpu_torch.mine, opengpc_tpu_torch.train, "
             "opengpc_tpu_torch.metrics, opengpc_tpu_torch.cli.extract, "
-            "opengpc_tpu_torch.cli.train\n"
+            "opengpc_tpu_torch.cli.train, opengpc_tpu_torch.cli.sparsematch, "
+            "opengpc_tpu_torch.densify, opengpc_tpu_torch.viz, "
+            "opengpc_tpu_torch.types, opengpc_tpu_torch.io.supports, "
+            "opengpc_tpu_torch.utils.timing\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'opengpc_tpu.')) or m == 'opengpc_tpu')\n"
             "assert not bad, bad\n"
