@@ -13,8 +13,8 @@ level-1 route of the one-call ``sparsematch`` at 436x1024: the masked
 epipolar route, the global-rows route at the library's default settings,
 and four cases of the flat route; the selectable variants (fused match,
 bitonic sort) and ``extract_descriptors``; the row-sharded single frame
-(every contract, n = 1 over a one-rank NCCL process group and n = 2, 4
-in one process) and one census call; the one-call on PNG paths, the
+(every contract, n = 1 over a one-rank NCCL process group and n = 4 in
+one process) and one census call; the one-call on PNG paths, the
 native host decode against the numpy one, the pyramid (``levels`` 2, 3
 and 5, the flat fallback, the batched fold, the compact pyramid) and
 ``build_stereomatch``.  The offline workflow follows: the device triplet
@@ -44,6 +44,7 @@ anything.
 """
 
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -1362,8 +1363,9 @@ def sharded_cases():
 
 def phase_sharded_frame(oracle, paths, launches):
     """The row-sharded single frame at 436x1024 with both shipped forests:
-    n = 1 over a real one-rank NCCL process group, n = 2 and 4 through the
-    one-process helper, every contract; and masked at 2160x3840 with n = 4.
+    n = 1 over a real one-rank NCCL process group, n = 4 through the
+    one-process helper (n = 2 is left to the CPU tests), every contract;
+    and masked at 2160x3840 with n = 4.
     Each path runs with the launch counters at 0 and must launch the key
     kernel's slab mode once a shard; each result equals the
     single-device module of its contract on the card (bit for bit; the
@@ -1425,7 +1427,7 @@ def phase_sharded_frame(oracle, paths, launches):
             "nccl", store=dist.FileStore(os.path.join(td, "store"), 1),
             rank=0, world_size=1)
         try:
-            for n in (1, 2, 4):
+            for n in (1, 4):
                 group = dist.group.WORLD if n == 1 else None
                 for forest in FORESTS:
                     mask = make_filter_mask(load_forest(paths[forest]))
@@ -2041,7 +2043,8 @@ def phase_train(smi, paths):
     ``CPU_SUBSET`` triplets, and the forest must meet the quality bar on a
     held-out scene.  Reports wall s a forest, the profiler's device ms and
     busy share of a forest, the scorer's device ms a level, and the peak
-    device memory."""
+    device memory.  Returns the triplets and the zero optimizer's forest
+    text fern at a time with its wall s, for ``multi_device``."""
     from opengpc_tpu_torch import (fern_factory, serialize_forest,
                                    tau_optimizer, train_forest,
                                    zero_optimizer)
@@ -2130,7 +2133,12 @@ def phase_train(smi, paths):
                 and taus_used == (name == "tau")):
             failures.append(f"{name}: {rows}")
         report[name] = rows
+        if name == "zero":
+            forests_zero = forests
+            walls_zero = {k: rows[k]["wall_s"] for k in forests}
     torch.cuda.empty_cache()
+    one_device = (serialize_forest(forests_zero["fern_at_a_time"]),
+                  walls_zero["fern_at_a_time"])
     emit("train", nvidia_smi=smi, triplets=n, bootstrap=sub_n, ferns=f,
          depth=settings.max_depth, cpu_subset=CPU_SUBSET,
          dataset_build_s=build_s,
@@ -2138,6 +2146,7 @@ def phase_train(smi, paths):
          stack_bytes=f * sub_n * 3 * 729, results=report, failures=failures)
     if failures:
         raise SystemExit(f"training failed: {failures}")
+    return trips, one_device
 
 
 def write_sintel_tree(root, rng, scenes=("alley_1", "market_5"), frames=2):
@@ -2180,7 +2189,8 @@ def phase_workflow(td, oracle, paths, launches):
     write_sintel_tree(root, np.random.default_rng(31))
     tree_s = time.perf_counter() - t0
     trips = os.path.join(td, "triplets.bin")
-    forest = os.path.join(td, "fresh.txt")
+    os.makedirs(os.path.join(td, "workflow_forest"))
+    forest = os.path.join(td, "workflow_forest", "fresh.txt")
     forest_cpu = os.path.join(td, "fresh_cpu.txt")
     t0 = time.perf_counter()
     proc = subprocess.run(
@@ -2737,6 +2747,394 @@ def phase_densify(smi):
         raise SystemExit(f"densify failed: {failures}")
 
 
+# the multi-device builders' cases: a B = 4 batch of dense or sparse
+# 436x1024 pairs, the pyramids at 448x1024 (448 = 16 x 28: at n = 4 and
+# 3 levels the coarsest slab is 28 rows, and 436 = 4 x 109 divides by no
+# n x 2^(L-1) past 4)
+MD_B, MD_PH, MD_LEVELS = 4, 448, 3
+MD_GRIDS = ((1, 1), (2, 2), (1, 4), (4, 1))
+TORCHRUN_TIMEOUT = 300
+
+
+def md_batches(h):
+    """The dense and sparse B = 4 batches of h x W pairs, host arrays."""
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    out = {}
+    for scene, make in (
+            ("dense", lambda b: make_pair(h, W, TRUE_DISP, seed=600 + b)),
+            ("sparse", lambda b: make_sparse_pair(h, W, TRUE_DISP,
+                                                  density=0.15,
+                                                  seed=610 + b))):
+        pairs = [make(b) for b in range(MD_B)]
+        out[scene] = tuple(np.stack([p[i] for p in pairs]) for i in (0, 1))
+    return out
+
+
+def md_decode(contract, out, j, settings):
+    """Frame j's (n, 3) supports of a batched result of ``contract``."""
+    from opengpc_tpu_torch import (global_row_supports_to_numpy,
+                                   masked_supports_to_numpy,
+                                   row_supports_to_numpy, supports_to_numpy)
+
+    def pick(t):
+        return tuple(pick(x) for x in t) if isinstance(t, tuple) else t[j]
+
+    # a compact contract's flags are not a frame's (masked-compact: one a
+    # rank or a frame group)
+    o = pick(out[:-1] if contract.endswith("compact") else out)
+    if contract == "flat":
+        return supports_to_numpy(*o)
+    if contract == "rows":
+        return row_supports_to_numpy(*o[0], o[1])
+    if contract.startswith("global"):
+        return global_row_supports_to_numpy(*o[0], o[1])
+    return masked_supports_to_numpy(o[0], o[1], settings.disp_high)
+
+
+def torchrun(pool, module, argv, cwd):
+    """``torchrun --standalone --nproc-per-node 1 -m module argv`` (one
+    rank on this card, its own rendezvous port) on a thread of ``pool``:
+    a future of (rc, stdout, stderr, wall s).  A launch past
+    ``TORCHRUN_TIMEOUT`` is killed and fails."""
+    def run():
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "1", "-m", module,
+                 *argv], cwd=cwd, capture_output=True, text=True,
+                timeout=TORCHRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            return -9, "", "timed out", time.perf_counter() - t0
+        return (proc.returncode, proc.stdout, proc.stderr,
+                time.perf_counter() - t0)
+
+    return pool.submit(run)
+
+
+def phase_multi_device(td, oracle, paths, launches, train_ref, smi):
+    """The multi-device builders of ``opengpc_tpu_torch.parallel`` on the
+    card: the six batched contracts and the batched pyramid, the
+    row-sharded pyramid (frame 0 of each batch) at n = 1 over a one-rank
+    NCCL group (``run_whole``: the rank's block, the module, the all-gather)
+    and at n = 2, 4 through the one-process helper; the 2-D frame (three
+    contracts) and pyramid on the (1, 1) grid of that group and on (2, 2),
+    (1, 4), (4, 1) through the helper.  Dense and sparse B = 4 batches at
+    436x1024 (pyramids 448x1024, 3 levels), both forests.  Every path runs
+    with the launch counters at 0 and must launch exactly its count; each
+    result equals the single-device module of its contract on the card
+    bit for bit (the sharded pyramids: the support set and counts) and
+    every frame passes the oracle gate (``pyramid_gate`` a level), unless
+    its overflow flag is set (then equal to the single-device module's
+    flag).  Then ``sharded_sparsematch_step`` on the group, the trainer
+    over the group at ``phase_train``'s ~10^6 triplets (its forest equal
+    to the one-device forest), events and device ms a call of the n = 1
+    group modules against the single-device masked module at B = 4, and
+    four ``torchrun`` launches of the CLIs at one rank (``--shard-frame
+    1`` single pair, plain and ``--pyramid 3``; ``--data-parallel 1
+    --batch 4`` over ``cli_sequence``'s 32 pairs; ``cli.train
+    --data-parallel 1``), started together before the builders run and
+    waited for after them, whose files must equal the one-device CLI's
+    from the earlier phases."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch.distributed as dist
+
+    from opengpc_tpu_torch import (InferenceSettings, build_sparsematch,
+                                   build_sparsematch_global_compact,
+                                   build_sparsematch_global_rows,
+                                   build_sparsematch_masked,
+                                   build_sparsematch_masked_compact,
+                                   build_sparsematch_rows, fern_factory,
+                                   load_forest, make_filter_mask,
+                                   serialize_forest, train_forest,
+                                   zero_optimizer)
+    from opengpc_tpu_torch import parallel as par
+    from opengpc_tpu_torch.pyramid import (build_pyramid_sparsematch,
+                                           pyramid_supports_to_numpy)
+
+    epi, lib = InferenceSettings(**SETTINGS_KW), InferenceSettings()
+    # the flat buffers hold every support: capacity H*W, as stereomatch's
+    flat = dataclasses.replace(epi, capacity=H * W)
+    contracts = {  # contract: (single-device builder, batched, settings)
+        "flat": (build_sparsematch, par.build_batched_sparsematch, flat),
+        "rows": (build_sparsematch_rows, par.build_batched_sparsematch_rows,
+                 epi),
+        "masked": (build_sparsematch_masked,
+                   par.build_batched_sparsematch_masked, epi),
+        "masked-compact": (build_sparsematch_masked_compact,
+                           par.build_batched_sparsematch_masked_compact, epi),
+        "global-rows": (build_sparsematch_global_rows,
+                        par.build_batched_sparsematch_global_rows, lib),
+        "global-compact": (build_sparsematch_global_compact,
+                           par.build_batched_sparsematch_global_compact, lib)}
+    # key-kernel launches of a B = 4 call over n ranks: the folding
+    # contracts one a rank's block, the others one a pair
+    folds = ("rows", "masked", "masked-compact")
+    host = {h: md_batches(h) for h in (H, MD_PH)}
+    frames = {h: {s: tuple(torch.from_numpy(a).cuda() for a in pair)
+                  for s, pair in batches.items()}
+              for h, batches in host.items()}
+    failures, report, refs = [], {}, {}
+
+    def reference(forest, scene, contract, mask):
+        """The single-device module's result on the batch, and the oracle
+        gate of every frame it does not flag: a builder's result that
+        equals it bit for bit passes the same gate."""
+        key = (forest, scene, contract)
+        if key in refs:
+            return refs[key]
+        if contract == "pyramid":
+            pl, pr = frames[MD_PH][scene]
+            out = build_pyramid_sparsematch(mask, epi, MD_LEVELS,
+                                            device="cuda")(pl, pr)
+            sets, ok = [], True
+            for j in range(MD_B):
+                sup = pyramid_supports_to_numpy(*(t[j] for t in out))
+                good, _ = pyramid_gate(oracle, host[MD_PH][scene][0][j],
+                                       host[MD_PH][scene][1][j],
+                                       paths[forest], sup, epi, MD_LEVELS)
+                ok = ok and good and len(sup) > 0
+                sets.append(support_keys(sup[:, :3]))
+            refs[key] = (out, ok, sets)
+            return refs[key]
+        build, _, settings = contracts[contract]
+        out = build(mask, settings, device="cuda")(*frames[H][scene])
+        flags = [False] * MD_B
+        if contract == "masked-compact":
+            flags = [bool(out[2])] * MD_B
+        elif contract == "global-compact":
+            flags = out[2].tolist()
+        ok, gated = True, 0
+        for j in range(MD_B):
+            if flags[j]:
+                continue
+            sup = md_decode(contract, out, j, settings)
+            good, _ = oracle_gate(oracle, host[H][scene][0][j],
+                                  host[H][scene][1][j], paths[forest], sup,
+                                  settings)
+            ok, gated = ok and good and len(sup) > 0, gated + 1
+        refs[key] = (out, ok, gated)
+        return refs[key]
+
+    def check(key, same, ok, **extra):
+        report[key] = dict(equals_single_device=bool(same),
+                           oracle_gate=bool(ok), **extra)
+        if not (same and ok):
+            failures.append(f"{key}: {report[key]}")
+
+    def equal(a, b):
+        return all(torch.equal(x, y)
+                   for x, y in zip(_leaves(a), _leaves(b), strict=True))
+
+    def compact_equal(out, want, groups):
+        """A compacted result: one flag a rank or frame group, set as the
+        single-device module's flag; the buffers equal where it is
+        clear."""
+        return (tuple(out[2].shape) == (groups,)
+                and bool(out[2].any()) == bool(want[2])
+                and (bool(want[2]) or equal(out[:2], want[:2])))
+
+    def pyramid_frames_equal(out, want_sets, want_counts, idx):
+        return all(torch.equal(out[4][i], want_counts[j]) and np.array_equal(
+            support_keys(pyramid_supports_to_numpy(
+                *(t[i] for t in out))[:, :3]), want_sets[j])
+            for i, j in idx)
+
+    def run_n(mod, l, r, n):
+        return (mod.run_whole(l, r) if n in (1, (1, 1))
+                else par._run_in_one_process(mod, l, r, n))
+
+    # the CLIs over a one-rank launch; their one-device references are
+    # the earlier phases' output directories
+    forest = paths["defaultZeroForest"]
+    dense = [os.path.join(td, f"cli_dense_{side}.png") for side in "lr"]
+    single_out = ["--capacity", CLI_CAPACITY, "--out", "OUT/d.png",
+                  "--supports-out", "OUT/s.txt"]
+    # the four launches at once, each its own process and rendezvous,
+    # while this process drives the builders
+    launch, started = {}, {}
+    t_launch = time.perf_counter()
+    pool = ThreadPoolExecutor(max_workers=4)
+    for name, module, argv, ref_dir in (
+            ("single_shard1", CLI,
+             [forest, *dense, "--shard-frame", "1", "--densify",
+              "OUT/dense.png", *single_out], "cli_masked_densify_cuda"),
+            ("single_shard1_pyramid3", CLI,
+             [forest, *dense, "--shard-frame", "1", "--pyramid", "3",
+              *single_out], "cli_pyramid3_dense_cuda"),
+            ("sequence_data1_batch4", CLI,
+             [forest, os.path.join(td, "seq_l"), os.path.join(td, "seq_r"),
+              "--data-parallel", "1", "--batch", "4", "--out", "OUT/d.png"],
+             "seq_batch4"),
+            ("train_data1", "opengpc_tpu_torch.cli.train",
+             [os.path.join(td, "triplets.bin"), "OUT/fresh.txt", "--seed",
+              "4", "--data-parallel", "1"], "workflow_forest")):
+        out_dir = os.path.join(td, f"torchrun_{name}")
+        os.makedirs(out_dir)
+        started[name] = (ref_dir, out_dir, torchrun(
+            pool, module, [a.replace("OUT", out_dir) for a in argv], REPO))
+    torch.cuda.set_device(0)
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as store_dir:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            world = dist.group.WORLD
+            grid11 = par.make_mesh_2d(1, 1)
+            for forest in FORESTS:
+                mask = make_filter_mask(load_forest(paths[forest]))
+                for scene in ("dense", "sparse"):
+                    l_d, r_d = frames[H][scene]
+                    pl, pr = frames[MD_PH][scene]
+                    for contract, (_, build, s) in contracts.items():
+                        want, ok, gated = reference(forest, scene, contract,
+                                                    mask)
+                        for n in (1, 2, 4):
+                            key = f"batched/{contract}/n{n}/{forest}/{scene}"
+                            mod = build(mask, s, world if n == 1 else None,
+                                        device="cuda")
+                            out, _ = launches.run(
+                                key, lambda: run_n(mod, l_d, r_d, n),
+                                {"fused_keys": n if contract in folds
+                                 else MD_B})
+                            same = (compact_equal(out, want, n)
+                                    if contract == "masked-compact"
+                                    else equal(out, want))
+                            check(key, same, ok, gated_frames=gated)
+                    wantp, okp, sets = reference(forest, scene, "pyramid",
+                                                 mask)
+                    for n in (1, 2, 4):
+                        key = f"batched/pyramid/n{n}/{forest}/{scene}"
+                        mod = par.build_batched_pyramid(
+                            mask, epi, world if n == 1 else None, MD_LEVELS,
+                            device="cuda")
+                        out, _ = launches.run(
+                            key, lambda: run_n(mod, pl, pr, n),
+                            {"fused_keys": MD_LEVELS * n})
+                        check(key, equal(out, wantp), okp)
+                        key = f"sharded_pyramid/n{n}/{forest}/{scene}"
+                        mod = par.build_sharded_frame_pyramid(
+                            mask, epi, world if n == 1 else None, MD_LEVELS,
+                            device="cuda")
+                        out, _ = launches.run(
+                            key, lambda: run_n(mod, pl[0], pr[0], n),
+                            {"fused_keys_slab": MD_LEVELS * n})
+                        check(key, pyramid_frames_equal(
+                            tuple(t[None] for t in out), sets, wantp[4],
+                            [(0, 0)]), okp)
+                    for grid in MD_GRIDS:
+                        ranks = grid[0] * grid[1]
+                        group = grid11 if grid == (1, 1) else None
+                        tag = f"{grid[0]}x{grid[1]}"
+                        for contract in folds:
+                            want, ok, gated = refs[(forest, scene, contract)]
+                            key = f"2d/{contract}/{tag}/{forest}/{scene}"
+                            mod = par.build_batched_sharded_frame_sparsematch(
+                                mask, epi, group, contract, device="cuda")
+                            out, _ = launches.run(
+                                key, lambda: run_n(mod, l_d, r_d, grid),
+                                {"fused_keys_slab": ranks})
+                            same = (compact_equal(out, want, grid[0])
+                                    if contract == "masked-compact"
+                                    else equal(out, want))
+                            check(key, same, ok, gated_frames=gated)
+                        key = f"2d/pyramid/{tag}/{forest}/{scene}"
+                        mod = par.build_batched_sharded_frame_pyramid(
+                            mask, epi, group, MD_LEVELS, device="cuda")
+                        out, _ = launches.run(
+                            key, lambda: run_n(mod, pl, pr, grid),
+                            {"fused_keys_slab": MD_LEVELS * ranks})
+                        check(key, pyramid_frames_equal(
+                            out, sets, wantp[4],
+                            [(j, j) for j in range(MD_B)]), okp)
+            paths_s = time.perf_counter() - t_start
+
+            # the launches end before the trainer and the timing windows
+            for name, (ref_dir, out_dir, proc) in started.items():
+                rc, out, err, wall = proc.result()
+                got = dir_bytes(out_dir)
+                same = got == dir_bytes(os.path.join(td, ref_dir))
+                launch[name] = dict(rc=rc, wall_s=wall,
+                                    equals_one_device=same,
+                                    files=sorted(got),
+                                    stdout=out.splitlines()[-2:])
+                if rc or not same:
+                    failures.append(
+                        f"torchrun {name}: {launch[name]} {err[-2000:]}")
+            launches_s = time.perf_counter() - t_launch
+            pool.shutdown()
+
+            t0 = time.perf_counter()
+            par.sharded_sparsematch_step(world, device="cuda")
+            step_s = time.perf_counter() - t0
+
+            trips, (one_text, one_wall) = train_ref
+            t0 = time.perf_counter()
+            text = serialize_forest(train_forest(
+                trips, fern_factory(2, 2, 2, 5), zero_optimizer(), seed=0,
+                verbose=False, device="cuda", group=world))
+            torch.cuda.synchronize()
+            trainer = dict(triplets=len(trips), wall_s=time.perf_counter() - t0,
+                           one_device_wall_s=one_wall,
+                           equals_one_device=text == one_text)
+            if text != one_text:
+                failures.append(f"trainer over the group: {trainer}")
+
+            mask = make_filter_mask(load_forest(paths["defaultZeroForest"]))
+            l_d, r_d = frames[H]["dense"]
+            pl, pr = frames[MD_PH]["dense"]
+            mods = {
+                "single_masked": lambda m=build_sparsematch_masked(
+                    mask, epi, device="cuda"): m(l_d, r_d),
+                "batched_masked": lambda m=par.build_batched_sparsematch_masked(
+                    mask, epi, world, device="cuda"): m.run_whole(l_d, r_d),
+                "batched_masked_forward": lambda m=(
+                    par.build_batched_sparsematch_masked(
+                        mask, epi, world, device="cuda")): m(l_d, r_d),
+                "2d_masked": lambda m=(
+                    par.build_batched_sharded_frame_sparsematch(
+                        mask, epi, grid11, device="cuda")): m.run_whole(
+                    l_d, r_d),
+                "single_pyramid3": lambda m=build_pyramid_sparsematch(
+                    mask, epi, MD_LEVELS, device="cuda"): m(pl, pr),
+                "batched_pyramid3": lambda m=par.build_batched_pyramid(
+                    mask, epi, world, MD_LEVELS, device="cuda"): m.run_whole(
+                    pl, pr),
+                "2d_pyramid3": lambda m=(
+                    par.build_batched_sharded_frame_pyramid(
+                        mask, epi, grid11, MD_LEVELS, device="cuda")):
+                    m.run_whole(pl, pr),
+                "sharded_pyramid3_one_frame": lambda m=(
+                    par.build_sharded_frame_pyramid(
+                        mask, epi, world, MD_LEVELS, device="cuda")):
+                    m.run_whole(pl[0], pr[0]),
+            }
+            out = par.build_batched_sparsematch_masked(
+                mask, epi, world, device="cuda")(l_d, r_d)
+            mods["all_gather_only"] = lambda: par.all_gather_outputs(out,
+                                                                     world)
+            times = {}
+            for name, fn in mods.items():
+                prof = device_profile(fn, 5, tries=1)
+                times[name] = dict(
+                    events_ms=[cuda_ms(fn, 10) for _ in range(2)],
+                    device_ms=prof["device_ms"], busy_share=prof["busy_share"],
+                    whole=prof["whole"], top=prof["kernels"][:3])
+        finally:
+            dist.destroy_process_group()
+
+    emit("multi_device", nvidia_smi=smi, shape=[H, W], pyramid_shape=[MD_PH, W],
+         batch=MD_B, levels=MD_LEVELS, cases=len(report), paths_s=paths_s,
+         torchrun_s=launches_s,
+         step_s=step_s, trainer=trainer, times=times, torchrun=launch,
+         checks=report, failures=failures)
+    if failures:
+        raise SystemExit(f"multi_device failed: {failures[:20]}")
+
+
 def load_mask(path):
     from opengpc_tpu_torch import load_forest, make_filter_mask
 
@@ -2774,7 +3172,7 @@ def main():
         phase_pyramid(oracle, paths, launches)
         phase_stereomatch(paths, launches)
         phase_mine_device()
-        phase_train(smi, paths)
+        train_ref = phase_train(smi, paths)
         phase_workflow(td, oracle, paths, launches)
         times = {"fused_keys": phase_times(smi)}
         phase_key_times(smi, masks)
@@ -2786,6 +3184,7 @@ def main():
         phase_cli_single(td, oracle, paths, launches)
         phase_cli_sequence(td, launches)
         phase_densify(smi)
+        phase_multi_device(td, oracle, paths, launches, train_ref, smi)
     missing = [k for k, n in launches.total.items() if n == 0]
     if missing:
         raise SystemExit(f"no path launched {missing}")

@@ -12,19 +12,34 @@ Given two directories it matches every frame pair of a sequence and writes
 ``supports_NNNN.txt`` next to ``--out``.  Defaults mirror the reference
 sample (sparsematch.cpp:29-34): gradient threshold 5, vertical tolerance
 0, dispHigh 128, epipolar mode on.  ``--device cpu`` runs on the CPU
-instead of the card; ``--data-parallel`` and ``--shard-frame`` above 1
-exit 1 (their multi-device builders are not in this package yet).
+instead of the card.
+
+``--shard-frame N`` (one pair's rows over N ranks) and ``--data-parallel
+D`` (a sequence's dispatch groups over D ranks; with ``--shard-frame``, a
+D x N grid) run one rank a device under ``torchrun``:
+
+    torchrun --nproc-per-node N -m opengpc_tpu_torch.cli.sparsematch \
+        <forest> <left.png> <right.png> --shard-frame N
+
+D x N must equal the launch's WORLD_SIZE (an unset flag counts as 1), and
+a one-rank launch with either flag at 1 takes the process-group path.  The
+ranks join NCCL on ``cuda:LOCAL_RANK``, or gloo with ``--device cpu``.
+Every rank reads the same frames; rank 0 alone probes, decides the
+overflow hysteresis, runs the single-device dispatches, prints and writes
+every file, so the files equal a one-device run's byte for byte.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from opengpc_tpu_torch.cli._errors import report_input_errors
 from opengpc_tpu_torch.config import InferenceSettings
@@ -41,6 +56,7 @@ from opengpc_tpu_torch.infer import (_global_rows_ok, _numpy, _rows_ok,
                                      row_supports_to_numpy, supports_to_numpy)
 from opengpc_tpu_torch.io.png import read_gray, write_png
 from opengpc_tpu_torch.io.supports import write_supports
+from opengpc_tpu_torch.parallel.groups import in_launch, join_launch
 from opengpc_tpu_torch.viz import disparity_visualization
 
 
@@ -49,19 +65,6 @@ from opengpc_tpu_torch.viz import disparity_visualization
 # 128/512 -> 0.15).  A misprediction is still exact either way: the
 # overflow guard re-runs the dispatch full-width.
 _AUTO_COMPACT_FRACTION = 0.6
-
-# the multi-device builders a CLI over several ranks would drive
-_UNPORTED = {
-    "--data-parallel": "the batched data-parallel builders "
-                       "(parallel.build_batched_sparsematch_rows, _masked, "
-                       "_masked_compact, _global_rows, _global_compact and "
-                       "build_batched_pyramid)",
-    "--shard-frame": "the CLI's multi-rank sharded frame and the 2-D and "
-                     "pyramid sharded builders "
-                     "(parallel.build_batched_sharded_frame_sparsematch, "
-                     "build_sharded_frame_pyramid, "
-                     "build_batched_sharded_frame_pyramid)",
-}
 
 
 def _auto_compact_threshold(masked: bool, width: int) -> float:
@@ -110,6 +113,60 @@ def _flag(t) -> bool:
     return bool(torch.as_tensor(t).any())
 
 
+class _Launch:
+    """This process's place in a ``torchrun`` launch: its rank, the world
+    group and the device it matches on (``cuda:LOCAL_RANK``, or the CPU
+    over gloo)."""
+
+    def __init__(self, args):
+        self.rank, self.device = join_launch(args.device)
+        self.group = dist.group.WORLD
+
+    @property
+    def lead(self) -> bool:
+        return self.rank == 0
+
+
+def _launch(args):
+    """(launch, error): this process's :class:`_Launch` under a torchrun
+    environment with --data-parallel or --shard-frame set, else None; the
+    error when D x N is not the launch's WORLD_SIZE."""
+    if not in_launch():
+        return None, None
+    world = int(os.environ["WORLD_SIZE"])
+    d, n = max(args.data_parallel, 1), max(args.shard_frame, 1)
+    if d * n != world:
+        return None, (f"--data-parallel {d} x --shard-frame {n} is {d * n} "
+                      f"ranks, but this launch has WORLD_SIZE={world}")
+    if not (args.data_parallel or args.shard_frame):
+        return None, None
+    return _Launch(args), None
+
+
+def _no_launch(args) -> str:
+    """The refusal of --data-parallel / --shard-frame above 1 outside a
+    torchrun launch, naming the launch that runs it."""
+    flags = " ".join(f"{name} {n}" for name, n in (
+        ("--data-parallel", args.data_parallel),
+        ("--shard-frame", args.shard_frame)) if n)
+    ranks = max(args.data_parallel, 1) * max(args.shard_frame, 1)
+    return (f"{flags}: one rank a device, so launch it as torchrun "
+            f"--nproc-per-node {ranks} -m opengpc_tpu_torch.cli.sparsematch "
+            f"... {flags}")
+
+
+def _agreed(launch, decide) -> float:
+    """``decide()`` as rank 0 computes it, on every rank: one broadcast.
+    Every branch that decides whether a collective runs takes it from
+    here, so the ranks never part ways."""
+    if launch is None:
+        return float(decide())
+    t = torch.tensor([float(decide()) if launch.lead else 0.0],
+                     dtype=torch.float64, device=launch.device)
+    dist.broadcast(t, 0, group=launch.group)
+    return float(t[0])
+
+
 class _OverflowGuard:
     """Exactness guard shared by every chunk-compacted call site: the
     compacted matchers return ``(*outputs, overflow)``, and a True flag
@@ -155,7 +212,7 @@ def _global_ok(fmask, shape, settings) -> bool:
 
 
 def _select_matcher(contract, forest, fmask, settings, levels, shape,
-                    density, dev, sequence=False):
+                    density, dev, sequence=False, parallel=False):
     """The matcher of ``contract`` for frames of ``shape``: ``(match, mode,
     guard)``.  ``mode`` names the layout of the outputs (``_supports``).  A
     compacted mode's ``match`` returns ``(*outputs, overflow)`` and
@@ -164,7 +221,9 @@ def _select_matcher(contract, forest, fmask, settings, levels, shape,
     the frames are eligible, and the compacted ones where ``density()``
     (called at most once) is at or under ``_auto_compact_threshold``.  The
     caller refuses an explicit contract the frames are not eligible for;
-    ``sequence`` picks the sequence mode's overflow notices."""
+    ``sequence`` picks the sequence mode's overflow notices.  ``parallel``
+    (a sequence over ranks) keeps the pyramid on the rows pyramid, the one
+    the multi-device pyramid builders run."""
     def guard(name, mode, make):
         dense = "" if sequence else "dense frame, "
         return _OverflowGuard(make, f"{name} overflow: {dense}re-ran the "
@@ -185,7 +244,7 @@ def _select_matcher(contract, forest, fmask, settings, levels, shape,
 
         name = "masked-compact" if contract == "masked-compact" else None
         if contract == "auto" and settings.epipolar_mode \
-                and settings.disp_high >= 1 \
+                and settings.disp_high >= 1 and not parallel \
                 and _rows_eligible(fmask, settings, shape[0], shape[1],
                                    levels):
             # density-adaptive: sparse frames ride the chunk-compacted
@@ -288,9 +347,12 @@ def _parser() -> argparse.ArgumentParser:
                    "contract folds); identical per-frame outputs.  Default "
                    "4 on the fast contracts (1 disables)")
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                   help="sequence mode: shard each --batch group's frames "
-                   "over N devices (not in this package yet: N > 1 exits "
-                   "1)")
+                   help="sequence mode: split each --batch dispatch "
+                   "group's frames over N ranks of a torchrun launch "
+                   "(parallel.build_batched_sparsematch_* builders; any "
+                   "contract but flat).  --batch must divide by N (the "
+                   "default batch rounds itself up); partial groups and "
+                   "mid-sequence shape changes dispatch singly on rank 0")
     p.add_argument("--trace", default=None, metavar="LOGDIR",
                    help="capture a torch.profiler trace (LOGDIR/trace.json) "
                    "of the repeated runs")
@@ -330,8 +392,14 @@ def _parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--shard-frame", type=int, default=0, metavar="N",
-        help="shard each pair's rows over N devices (not in this package "
-        "yet: N > 1 exits 1).  0 (default) = off",
+        help="shard each pair's ROWS over N ranks of a torchrun launch "
+        "(epipolar only, image height must divide by N and give each "
+        "shard >= 14 rows).  Single-pair mode: "
+        "parallel.build_sharded_frame_sparsematch; with --pyramid L the "
+        "sharded multi-scale matcher (height must divide by N*2^(L-1)).  "
+        "Sequence mode: composes with --data-parallel over a D x N grid "
+        "(build_batched_sharded_frame_sparsematch; masked/rows/"
+        "masked-compact contracts).  0 (default) = off",
     )
     p.add_argument(
         "--matcher", choices=("sort", "quirk", "hashmatch"), default="sort",
@@ -355,15 +423,32 @@ def _parser() -> argparse.ArgumentParser:
 @report_input_errors
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    launch, err = _launch(args)
+    if err:
+        print(err, file=sys.stderr)
+        return 1
+    try:
+        with _quiet(launch):
+            return _main(args, launch)
+    finally:
+        if launch is not None:
+            dist.destroy_process_group()
 
-    for flag, n in (("--data-parallel", args.data_parallel),
-                    ("--shard-frame", args.shard_frame)):
-        if n > 1:
-            print(f"{flag} {n}: {_UNPORTED[flag]} are not ported to "
-                  "opengpc_tpu_torch yet; match on one device",
-                  file=sys.stderr)
-            return 1
-    dev = torch.device(args.device)
+
+@contextlib.contextmanager
+def _quiet(launch):
+    """Rank 0 alone prints: the other ranks' stdout and stderr go
+    nowhere."""
+    if launch is None or launch.lead:
+        yield
+        return
+    with open(os.devnull, "w") as null, contextlib.redirect_stdout(null), \
+            contextlib.redirect_stderr(null):
+        yield
+
+
+def _main(args, launch) -> int:
+    dev = launch.device if launch is not None else torch.device(args.device)
 
     # single-pair host latency: for large frames both decodes start on a
     # 2-thread pool right away and the forest parse overlaps them; at
@@ -432,10 +517,14 @@ def main(argv=None) -> int:
         if args.supports_out:
             print("sequence mode writes per-frame supports_NNNN.txt next "
                   "to --out; --supports-out is ignored", file=sys.stderr)
-        return _run_sequence(args, forest, settings, dev)
+        return _run_sequence(args, forest, settings, dev, launch)
     if args.batch is not None and args.batch > 1:
         print("--batch applies to sequence (directory) mode only",
               file=sys.stderr)
+        return 1
+    if args.data_parallel > 1:
+        print("--data-parallel applies to sequence (directory) mode only "
+              "(single-pair multi-chip is --shard-frame)", file=sys.stderr)
         return 1
     if rd_futs is not None:
         left = rd_futs[0].result()
@@ -478,28 +567,36 @@ def main(argv=None) -> int:
 
     tl, tr = _upload(left, dev), _upload(right, dev)
     fmask = make_filter_mask(forest)
+    if args.shard_frame > 1 or (launch is not None and args.shard_frame):
+        picked = _sharded_single(args, fmask, settings, left.shape, launch,
+                                 dev)
+        if isinstance(picked, int):
+            return picked
+        match, mode = picked
     # fast output contracts when available (<=30-test forests, packable
     # keys): epipolar rides the masked/row-form matchers, global mode the
     # segmented global contract; --contract forces one (--pyramid: auto or
     # masked-compact)
-    if args.contract in ("rows", "masked", "masked-compact") \
+    elif args.contract in ("rows", "masked", "masked-compact") \
             and not _rows_ok(fmask, left.shape, settings):
         print(f"--contract {args.contract} needs epipolar mode, a "
               "<=30-test forest and packable (x, d) keys for this "
               "image size", file=sys.stderr)
         return 1
-    if args.contract in ("global-rows", "global-compact") \
+    elif args.contract in ("global-rows", "global-compact") \
             and not _global_ok(fmask, left.shape, settings):
         print(f"--contract {args.contract} needs --global-mode, a "
               "<=30-test forest and packable (y, x, d) keys for this "
               "image size", file=sys.stderr)
         return 1
-    match, mode, guard = _select_matcher(
-        args.contract, forest, fmask, settings, args.pyramid, left.shape,
-        lambda: _probe_density(settings, left, right, dev), dev)
-    if guard is not None:
-        # a dense frame re-runs full-width inside the call, exact either way
-        match, mode = guard.wrap(match), _FALLBACK[mode][0]
+    else:
+        match, mode, guard = _select_matcher(
+            args.contract, forest, fmask, settings, args.pyramid, left.shape,
+            lambda: _probe_density(settings, left, right, dev), dev)
+        if guard is not None:
+            # a dense frame re-runs full-width inside the call, exact
+            # either way
+            match, mode = guard.wrap(match), _FALLBACK[mode][0]
 
     def run():
         out = match(tl, tr)
@@ -514,11 +611,14 @@ def main(argv=None) -> int:
     from opengpc_tpu_torch.utils.timing import PhaseTimer, trace
 
     best = t_first
-    with trace(args.trace):
+    lead = launch is None or launch.lead
+    with trace(args.trace if lead else None):
         for _ in range(max(0, args.repeats - 1)):
             t0 = time.perf_counter()
             result = run()
             best = min(best, time.perf_counter() - t0)
+    if not lead:
+        return 0  # rank 0 alone reports and writes
 
     pt = PhaseTimer()
     pt.totals["match"] = best  # device pipeline (preprocess+match)
@@ -577,6 +677,88 @@ def main(argv=None) -> int:
         write_supports(args.supports_out, supports)
         print(f"wrote {args.supports_out}")
     return 0
+
+
+def _sharded_single(args, fmask, settings, shape, launch, dev):
+    """Single-pair ``--shard-frame``: ``(match, mode)`` of the pair's rows
+    over the launch's ranks, or the exit code of a refusal (the JAX CLI's
+    checks and wording).  ``match`` takes the whole pair on every rank and
+    returns the whole result on every rank."""
+    from opengpc_tpu_torch import parallel as par
+    from opengpc_tpu_torch.ops.fused import PAD
+
+    n = args.shard_frame
+    gmode = args.global_mode
+    ok_contracts = (("auto", "global-compact") if gmode
+                    else ("auto", "rows", "masked", "masked-compact"))
+    bad = [name for name, on in (
+        ("--pyramid (with --global-mode)", args.pyramid > 1 and gmode),
+        ("--pyramid (with an explicit --contract)",
+         args.pyramid > 1 and args.contract != "auto"),
+        (f"--matcher {args.matcher}", args.matcher != "sort"),
+        (f"--contract {args.contract} (with "
+         + ("--global-mode" if gmode else "epipolar mode") + ")",
+         args.contract not in ok_contracts),
+    ) if on]
+    if bad:
+        print(f"--shard-frame does not support: {', '.join(bad)}",
+              file=sys.stderr)
+        return 1
+    if launch is None:
+        print(_no_launch(args), file=sys.stderr)
+        return 1
+    eligible = (_global_rows_ok if gmode else _rows_ok)(fmask, shape,
+                                                        settings)
+    if not eligible or shape[0] % n or shape[0] // n < PAD:
+        print(f"--shard-frame {n} needs a <=30-test forest, packable "
+              f"{'(y, x, d)' if gmode else '(x, d)'} keys, and an "
+              f"image height divisible by {n} with >= {PAD} rows per "
+              f"shard (got {shape})", file=sys.stderr)
+        return 1
+    group = launch.group
+    if args.pyramid > 1:
+        from opengpc_tpu_torch.pyramid import _rows_eligible
+
+        align = n << (args.pyramid - 1)
+        if shape[0] % align or (shape[0] // n) >> (args.pyramid - 1) < PAD:
+            print(f"--shard-frame {n} --pyramid {args.pyramid} needs "
+                  f"an image height divisible by {align} with the "
+                  f"coarsest slab >= {PAD} rows (got {shape}); "
+                  "pad the pair or reduce levels", file=sys.stderr)
+            return 1
+        if _rows_eligible(fmask, settings, shape[0], shape[1],
+                          args.pyramid) is None:
+            print(f"--shard-frame {n} --pyramid {args.pyramid}: the "
+                  f"finest-wins dedup key for {shape[0]}x{shape[1]} x "
+                  f"{args.pyramid} levels exceeds int32 packing; reduce "
+                  "levels or the image size", file=sys.stderr)
+            return 1
+        return par.build_sharded_frame_pyramid(
+            fmask, settings, group, args.pyramid,
+            device=dev).run_whole, "pyramid"
+    if gmode:
+        # the distributed bucket sort; a dense frame trips the flag and
+        # re-runs on one device at full width
+        smatch = par.build_sharded_frame_sparsematch(
+            fmask, settings, group, "global-compact", device=dev)
+        return _OverflowGuard(
+            lambda: build_sparsematch_global_rows(fmask, settings,
+                                                  device=dev),
+            "global-compact overflow: dense frame, re-ran the "
+            "single-device full-width global matcher").wrap(
+            smatch.run_whole), "global_rows"
+    contract = (args.contract if args.contract in ("rows", "masked-compact")
+                else "masked")
+    smatch = par.build_sharded_frame_sparsematch(fmask, settings, group,
+                                                 contract, device=dev)
+    if contract != "masked-compact":
+        return smatch.run_whole, contract
+    # any shard's dense chunk sets the flag on every rank
+    return _OverflowGuard(
+        lambda: par.build_sharded_frame_sparsematch(
+            fmask, settings, group, "masked", device=dev).run_whole,
+        "masked-compact overflow: dense frame, re-ran the sharded "
+        "full-width masked matcher").wrap(smatch.run_whole), "masked"
 
 
 def _trim(supports, capacity: int):
@@ -644,10 +826,91 @@ def _run_host_matcher(args, forest, settings, left, right, dev) -> int:
     return 0
 
 
-def _run_sequence(args, forest, settings, dev) -> int:
+def _parallel_sequence(args, fmask, settings, shape, mode, fast, batch,
+                       launch, dev):
+    """Sequence ``--data-parallel`` / ``--shard-frame``:
+    ``(match_batched, batch, sf_single)``, the stacked dispatch over the
+    launch's ranks (a D x N grid with --shard-frame), or the exit code of a
+    refusal (the JAX CLI's checks and wording)."""
+    from opengpc_tpu_torch import parallel as par
+
+    if not fast:
+        print("--data-parallel/--shard-frame need a fast stacked "
+              "contract (rows/masked/masked-compact/global) — this "
+              "forest/shape only supports the flat pipeline",
+              file=sys.stderr)
+        return 1
+    dp, sf = args.data_parallel, args.shard_frame
+    sharded = sf > 1 or (launch is not None and sf >= 1)
+    if sharded:
+        # frames over a "data" axis and each frame's rows over a "rows"
+        # axis: the 2-D grid builders
+        if mode not in ("masked", "rows", "masked-compact", "pyramid"):
+            print(f"--shard-frame with the {mode} contract is not "
+                  "supported in sequence mode (the global distributed "
+                  "bucket sort is single-pair only — use the "
+                  "single-pair CLI for one big global frame, or "
+                  "--data-parallel to scale global sequences over "
+                  "the batch axis)", file=sys.stderr)
+            return 1
+        if launch is None:
+            print(_no_launch(args), file=sys.stderr)
+            return 1
+        lv = args.pyramid - 1 if mode == "pyramid" else 0
+        if shape[0] % (sf << lv) or (shape[0] // sf) >> lv < 14:
+            print(f"--shard-frame {sf}: frame height {shape[0]} "
+                  f"must divide by {sf << lv} with >= 14 rows per "
+                  "shard at the coarsest level", file=sys.stderr)
+            return 1
+        if mode == "pyramid":
+            from opengpc_tpu_torch.pyramid import _rows_eligible
+
+            if _rows_eligible(fmask, settings, shape[0], shape[1],
+                              args.pyramid) is None:
+                print(f"--shard-frame {sf} --pyramid {args.pyramid}: "
+                      f"the finest-wins dedup key for {shape[0]}x"
+                      f"{shape[1]} x {args.pyramid} levels exceeds int32 "
+                      "packing; reduce levels or the frame size",
+                      file=sys.stderr)
+                return 1
+    elif launch is None:
+        print(_no_launch(args), file=sys.stderr)
+        return 1
+    if dp > 1:
+        if args.batch is not None and batch % dp:
+            print(f"--batch {batch} must divide by --data-parallel "
+                  f"{dp} (shard_map splits the stacked batch axis "
+                  "evenly)", file=sys.stderr)
+            return 1
+        batch = -(-batch // dp) * dp  # round the default batch up
+    if sharded:
+        grid = par.make_mesh_2d(max(dp, 1), sf)
+        if mode == "pyramid":
+            mod = par.build_batched_sharded_frame_pyramid(
+                fmask, settings, grid, args.pyramid, device=dev)
+        else:
+            mod = par.build_batched_sharded_frame_sparsematch(
+                fmask, settings, grid, mode, device=dev)
+        return mod.run_whole, batch, dp <= 1
+    if mode == "pyramid":
+        mod = par.build_batched_pyramid(fmask, settings, launch.group,
+                                        args.pyramid, device=dev)
+    else:
+        mod = {"rows": par.build_batched_sparsematch_rows,
+               "masked": par.build_batched_sparsematch_masked,
+               "masked-compact": par.build_batched_sparsematch_masked_compact,
+               "global_rows": par.build_batched_sparsematch_global_rows,
+               "global-compact": par.build_batched_sparsematch_global_compact,
+               }[mode](fmask, settings, launch.group, device=dev)
+    return mod.run_whole, batch, False
+
+
+def _run_sequence(args, forest, settings, dev, launch) -> int:
     """Directory mode: match every left/right frame pair of a rectified
     stereo sequence on ``dev``, write per-frame supports next to ``--out``,
-    report aggregate throughput."""
+    report aggregate throughput.  Under a ``launch`` the full dispatch
+    groups run over its ranks; rank 0 alone decides, runs the single
+    dispatches and writes."""
     import glob
 
     lefts = sorted(glob.glob(os.path.join(args.left, "*.png")))
@@ -678,14 +941,17 @@ def _run_sequence(args, forest, settings, dev) -> int:
         # density-adaptive auto: probe frame 0's candidate density and ride
         # the chunk-compacted contracts on sparse sequences
         first.append((probe, read_gray(rights[0])))
-        return _probe_density(settings, *first[0], dev)
+        return _agreed(launch, lambda: _probe_density(settings, *first[0],
+                                                      dev))
 
     # --pyramid: every full dispatch group rides the batched rows pyramid
     # fold; ineligible shapes fall back inside the builder to the flat
     # per-level path, so any frame shape works
     match, mode, guard = _select_matcher(
         args.contract, forest, fmask, settings, args.pyramid, probe.shape,
-        density, dev, sequence=True)
+        density, dev, sequence=True,
+        parallel=(launch is not None or args.data_parallel > 1
+                  or args.shard_frame > 1))
     pyramid_mode = mode in ("pyramid", "pyramid-compact")
     # the rows pyramid takes frames of another shape than frame 0's
     rows_pyr = (guard.fallback() if guard else match) if pyramid_mode \
@@ -714,6 +980,22 @@ def _run_sequence(args, forest, settings, dev) -> int:
             "packable keys for this image size); frames dispatch singly",
             file=sys.stderr,
         )
+
+    # --data-parallel / --shard-frame: full dispatch groups run over the
+    # launch's ranks (the builders give the single-device batch fold's
+    # stacked outputs, so assembly is unchanged); partial groups,
+    # shape-change singles and overflow re-runs stay on one device
+    match_batched = match
+    sf_single = False  # --shard-frame alone: a 1-frame group still shards
+    if launch is not None or args.data_parallel > 1 or args.shard_frame > 1:
+        picked = _parallel_sequence(args, fmask, settings, probe.shape, mode,
+                                    fast, batch, launch, dev)
+        if isinstance(picked, int):
+            return picked
+        match_batched, batch, sf_single = picked
+    # the ranks of a launch all run the stacked dispatches; rank 0 alone
+    # runs the rest and writes
+    lead = launch is None or launch.lead
 
     # Mid-sequence density hysteresis: the auto probe runs on frame 0
     # only, so a sequence that drifts dense would pay compact + full-width
@@ -774,9 +1056,12 @@ def _run_sequence(args, forest, settings, dev) -> int:
             write_frame(i0 + j, _supports(dmode, out, settings.disp_high,
                                           j if stacked else None), gray(j))
 
-    def dispatch(i0, dmode, fn, l, r, k=1, stacked=False):
+    def dispatch(i0, dmode, fn, l, r, k=1, stacked=False, ranks=False):
         """Queue one matcher call on the device (its outputs stay there)
-        as the pending work of frames i0..i0+k-1."""
+        as the pending work of frames i0..i0+k-1; None on a rank other
+        than 0 unless every rank of the launch takes part (``ranks``)."""
+        if not (lead or ranks):
+            return None
         return (i0, dmode, fn(_upload(l, dev), _upload(r, dev)), k,
                 (l, r) if keep_frames else None, stacked)
 
@@ -785,17 +1070,33 @@ def _run_sequence(args, forest, settings, dev) -> int:
         batch folds into one (B*H, 2W) row sort on the folding contracts,
         with per-frame outputs identical to single-frame dispatches."""
         i0, l, r = group[0]
-        if len(group) == 1:
+        if len(group) == 1 and not sf_single:
             return dispatch(i0, mode, match, l, r)
         lb = np.stack([g[1] for g in group])
         rb = np.stack([g[2] for g in group])
-        return dispatch(i0, mode, match, lb, rb, len(group), True)
+        return dispatch(i0, mode, match_batched, lb, rb, len(group), True,
+                        ranks=launch is not None)
 
     def flush_group(group):
         """Dispatch a partial (flushed or leftover) group as single frames:
         the single-frame path is the one every partial group shares."""
         for i, l, r in group:
             submit(dispatch(i, mode, match, l, r))
+
+    def dense_stretch(i, left, right) -> bool:
+        """While the hysteresis is tripped, whether frame i is dense (a
+        straight full-width dispatch); a sparse frame clears it."""
+        if not ovf_state["tripped"]:
+            return False
+        dens = _probe_density(settings, left, right, dev)
+        if dens > _auto_compact_threshold(
+                mode in ("masked-compact", "pyramid-compact"),
+                left.shape[1]):
+            return True
+        print(f"frame {i}: density {dens:.2f} back under the compact "
+              "threshold — resuming the compact contract", file=sys.stderr)
+        ovf_state["tripped"] = False
+        return False
 
     # software pipeline: the device runs ahead of the host; assembly
     # (device-to-host copies, decode, supports and PNG writes) runs on its
@@ -811,6 +1112,8 @@ def _run_sequence(args, forest, settings, dev) -> int:
     futures = collections.deque()
 
     def submit(pending):
+        if not lead:  # rank 0 alone writes
+            return
         futures.append(ex.submit(assemble, pending))
         while len(futures) > 2:  # bound in-flight device output buffers
             futures.popleft().result()
@@ -849,26 +1152,17 @@ def _run_sequence(args, forest, settings, dev) -> int:
                     lambda l, r: (read_gray(l), read_gray(r)),
                     *pairs[i + PREFETCH]))
             total_px += 2 * left.size
-            if (guard is not None and ovf_state["tripped"]
-                    and left.shape == probe.shape):
-                dens = _probe_density(settings, left, right, dev)
-                if dens > _auto_compact_threshold(
-                        mode in ("masked-compact", "pyramid-compact"),
-                        left.shape[1]):
-                    # dense stretch: skip the compact attempt entirely
-                    if group:
-                        # the pending group is partial (k < batch): route
-                        # it through the single-frame path like every other
-                        # flush
-                        flush_group(group)
-                        group = []
-                    submit(dispatch(i, fallback_mode, guard.fallback(),
-                                    left, right))
-                    continue
-                print(f"frame {i}: density {dens:.2f} back under the "
-                      "compact threshold — resuming the compact contract",
-                      file=sys.stderr)
-                ovf_state["tripped"] = False
+            if guard is not None and left.shape == probe.shape and _agreed(
+                    launch, lambda: dense_stretch(i, left, right)):
+                # dense stretch: skip the compact attempt entirely
+                if group:
+                    # the pending group is partial (k < batch): route it
+                    # through the single-frame path like every other flush
+                    flush_group(group)
+                    group = []
+                submit(dispatch(i, fallback_mode, guard.fallback(), left,
+                                right))
+                continue
             if fast and left.shape == probe.shape:
                 group.append((i, left, right))
                 if len(group) < batch:

@@ -11,12 +11,27 @@ Defaults mirror the reference ``train`` sample: zero optimizer with 10
 resamples and w1=0.5, FernFactory(2, 2, 2, 5), sample fraction 0.7.
 Training takes an explicit ``--seed`` and is fully reproducible.
 ``--device cpu`` trains on the CPU instead of the card.
+
+``--data-parallel N`` splits the triplet axis over the N ranks of a
+``torchrun`` launch, one rank a device (NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``):
+
+    torchrun --nproc-per-node N -m opengpc_tpu_torch.cli.train \
+        <triplets.bin> <forest.txt> --data-parallel N
+
+Every rank loads the same dataset and sums each level's counts with the
+others; rank 0 alone prints and writes the forest, which is the one-device
+trainer's byte for byte.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
+
+import torch.distributed as dist
 
 from opengpc_tpu_torch.cli._errors import report_input_errors
 from opengpc_tpu_torch.config import (fern_factory, tau_optimizer,
@@ -57,18 +72,44 @@ def main(argv=None) -> int:
                    "byte-for-byte; batched is the multi-fern default when "
                    "the bootstrap stack fits its cap)")
     p.add_argument("--data-parallel", type=int, default=0, metavar="N",
-                   help="shard the triplet axis over N devices (not in "
-                   "this package yet: N > 1 exits 1)")
+                   help="split the triplet axis over the N ranks of a "
+                   "torchrun launch (each level's TP/FP/FN counts become "
+                   "one all_reduce; the selected splits are IDENTICAL, "
+                   "integer counts being exact however they are split)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
     args = p.parse_args(argv)
 
-    if args.data_parallel > 1:
-        print(f"--data-parallel {args.data_parallel}: the sharded trainer "
-              "is not ported to opengpc_tpu_torch yet; train on one device",
-              file=sys.stderr)
-        return 1
+    from opengpc_tpu_torch.parallel.groups import in_launch, join_launch
 
+    group, device, lead = None, args.device, True
+    if in_launch():
+        world = int(os.environ["WORLD_SIZE"])
+        if max(args.data_parallel, 1) != world:
+            print(f"--data-parallel {max(args.data_parallel, 1)} is not this "
+                  f"launch's WORLD_SIZE={world}", file=sys.stderr)
+            return 1
+        if args.data_parallel:
+            rank, device = join_launch(args.device)
+            group, lead = dist.group.WORLD, rank == 0
+    elif args.data_parallel > 1:
+        print(f"--data-parallel {args.data_parallel}: one rank a device, so "
+              f"launch it as torchrun --nproc-per-node {args.data_parallel} "
+              "-m opengpc_tpu_torch.cli.train ... --data-parallel "
+              f"{args.data_parallel}", file=sys.stderr)
+        return 1
+    try:
+        with contextlib.ExitStack() as quiet:
+            if not lead:  # rank 0 alone prints and writes
+                null = quiet.enter_context(open(os.devnull, "w"))
+                quiet.enter_context(contextlib.redirect_stdout(null))
+            return _train(args, group, device, lead)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _train(args, group, device, lead: bool) -> int:
     triplets = load_triplets(args.dataset)
     print(f"Loaded {triplets.shape[0]} triplets from {args.dataset}")
 
@@ -84,11 +125,14 @@ def main(argv=None) -> int:
         max_depth=settings.max_depth,
         sample_fraction=args.sample_fraction,
     )
+    # a checkpoint trains fern at a time on every rank; rank 0 writes it
     forest = train_forest(triplets, settings, optimizer, seed=args.seed,
-                          checkpoint_path=args.checkpoint,
-                          batch_ferns=False if args.no_batch_ferns else None,
-                          device=args.device)
-    save_forest(forest, args.forest_out)
+                          checkpoint_path=args.checkpoint if lead else None,
+                          batch_ferns=(False if args.no_batch_ferns
+                                       or args.checkpoint else None),
+                          device=device, group=group)
+    if lead:
+        save_forest(forest, args.forest_out)
     print(f"Exported forest to {args.forest_out}")
     return 0
 

@@ -41,6 +41,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from opengpc_tpu_torch.config import ForestSettings, OptimizerSettings
 from opengpc_tpu_torch.forest import (Fern, Forest, PATCH, PATCH_HALF,
@@ -185,12 +186,61 @@ def _mark_splits(split_pos, split_neg, eq_pos, eq_neg):
     return split_pos | eq_pos, split_neg | ~eq_neg
 
 
-def _diag_counts(eq_pos, eq_neg):
-    """Unmasked diagnostic TP/FP over the last axis: TP = eqPos & !eqNeg,
-    FP = !eqPos & eqNeg."""
-    tp = (eq_pos & ~eq_neg).sum(dim=-1, dtype=torch.int32)
-    fp = (~eq_pos & eq_neg).sum(dim=-1, dtype=torch.int32)
-    return tp, fp
+def _diag_counts(eq_pos, eq_neg, valid):
+    """Unmasked diagnostic (TP, FP) over the last axis, stacked: TP =
+    eqPos & !eqNeg, FP = !eqPos & eqNeg, pads (``valid`` False) left
+    out."""
+    tp = (eq_pos & ~eq_neg & valid).sum(dim=-1, dtype=torch.int32)
+    fp = (~eq_pos & eq_neg & valid).sum(dim=-1, dtype=torch.int32)
+    return torch.stack([tp, fp])
+
+
+def _share(n: int, group):
+    """(lo, hi, size) of this rank's contiguous share of n triplets: the
+    axis padded to a multiple of the group's size, [lo, hi) real, size -
+    (hi - lo) pads."""
+    if group is None:
+        return 0, n, n
+    rank, ranks = dist.get_rank(group), dist.get_world_size(group)
+    size = -(-n // ranks)
+    lo = min(rank * size, n)
+    return lo, min(lo + size, n), size
+
+
+def _padded(patches, size: int):
+    """This rank's (..., n_local, 3, 729) triplets padded with zero
+    triplets to ``size`` on the triplet axis, and the (size,) mask of the
+    real ones.  Pads start with both split flags set, so they never enter
+    a level's counts, and the mask keeps them out of the diagnostics."""
+    real = patches.shape[-3]
+    valid = torch.arange(size, device=patches.device) < real
+    if real < size:
+        pad = patches.new_zeros(patches.shape[:-3] + (size - real,)
+                                + patches.shape[-2:])
+        patches = torch.cat([patches, pad], dim=-3)
+    return patches, valid
+
+
+def _all_sum(group, *counts):
+    """The int32 count tensors summed over the group's ranks, in one
+    ``all_reduce``."""
+    if group is None:
+        return counts
+    flat = torch.cat([c.reshape(-1) for c in counts])
+    dist.all_reduce(flat, group=group)
+    return tuple(t.reshape(c.shape) for t, c in
+                 zip(torch.split(flat, [c.numel() for c in counts]), counts))
+
+
+def _set_diag(stats: "LevelStats", tp_all: int, fp_all: int, n: int):
+    stats.tp_all, stats.fp_all = tp_all, fp_all
+    stats.fn_all = n - tp_all - fp_all
+
+
+def _set_fern_diags(stats_out, diag, n: int):
+    """Each fern's last level's diagnostics from the summed (2, F)."""
+    for stats, (tp_all, fp_all) in zip(stats_out, diag.T.tolist()):
+        _set_diag(stats[-1], tp_all, fp_all, n)
 
 
 def _hmean(tp: int, fp: int, fn: int, w1: float) -> Tuple[float, float, float]:
@@ -246,6 +296,7 @@ def train_fern(
     candidates: Optional[Sequence[np.ndarray]] = None,
     verbose: bool = True,
     device="cuda",
+    group=None,
 ) -> Tuple[Fern, List[LevelStats]]:
     """Greedily train one fern.
 
@@ -254,7 +305,23 @@ def train_fern(
     sampleHyperplane) or ``candidates`` (a list of (R, 2) arrays of patch
     linear indices per level — the injection hook used for differential
     testing against the C++ oracle) must be given.
+
+    ``group``: a ``torch.distributed`` process group whose ranks split
+    the triplet axis (every rank passes the whole set and the same
+    ``rng``): each holds its contiguous share, padded with excluded
+    triplets, and each level's counts are summed over the ranks; the
+    selected splits are the one-device trainer's.
     """
+    lo, hi, size = _share(len(triplets), group)
+    patches, valid = _padded(torch.as_tensor(triplets[lo:hi]).to(device),
+                             size)
+    return _train_fern(patches, valid, len(triplets), scale, optimizer,
+                       max_depth, rng, candidates, verbose, group)
+
+
+def _train_fern(patches, valid, n: int, scale, optimizer, max_depth, rng,
+                candidates, verbose, group):
+    """train_fern on this rank's padded share ``patches`` of n triplets."""
     if candidates is None:
         if rng is None:
             raise ValueError("pass rng or explicit candidates")
@@ -263,17 +330,16 @@ def train_fern(
             for _ in range(max_depth)
         ]
 
-    patches = torch.as_tensor(triplets).to(device)
-    n = patches.shape[0]
-    eq_pos = torch.ones((n,), dtype=torch.bool, device=patches.device)
-    eq_neg = torch.ones_like(eq_pos)
-    split_pos = torch.zeros_like(eq_pos)
-    split_neg = torch.zeros_like(eq_pos)
+    eq_pos = torch.ones_like(valid)
+    eq_neg = torch.ones_like(valid)
+    split_pos = ~valid
+    split_neg = ~valid
 
     tau_lo, tau_hi = optimizer.tau_lo, optimizer.tau_hi
     num_taus = tau_hi - tau_lo
     chosen: List[Test] = []
     stats_out: List[LevelStats] = []
+    diag = ()  # the last level's diagnostics, summed with the next counts
 
     if verbose:
         print(_header())
@@ -281,8 +347,12 @@ def train_fern(
     for level in range(max_depth):
         cand = np.asarray(candidates[level], np.int32)
         include, tot_dev = _include_and_tot(split_pos, split_neg)
-        counts = _score_level(patches, cand, tau_lo, num_taus, eq_pos,
-                              eq_neg, include).cpu().numpy()  # (R, T, 3)
+        counts, tot_dev, *diag = _all_sum(
+            group, _score_level(patches, cand, tau_lo, num_taus, eq_pos,
+                                eq_neg, include), tot_dev, *diag)
+        if diag:
+            _set_diag(stats_out[-1], *diag[0].tolist(), n)
+        counts = counts.cpu().numpy()  # (R, T, 3)
 
         best, best_counts = _select_best(counts, cand, tau_lo, num_taus,
                                          optimizer.w1)
@@ -300,17 +370,16 @@ def train_fern(
         prec, rec, hm = _hmean(tp, fp, fn, optimizer.w1)
         # unmasked diagnostic counts from the post-fold eq flags (the
         # ≤level code-equality prefix)
-        tp_all, fp_all = (int(v) for v in _diag_counts(eq_pos, eq_neg))
-        fn_all = int(n - tp_all - fp_all)
+        diag = [_diag_counts(eq_pos, eq_neg, valid)]
         ix, iy = _lin_to_xy(bi)
         jx, jy = _lin_to_xy(bj)
         chosen.append(Test(ix, iy, jx, jy, btau))
         stats_out.append(
-            LevelStats(level, bi, bj, btau, tp, fp, fn, tot, prec, rec, hm,
-                       tp_all, fp_all, fn_all)
-        )
+            LevelStats(level, bi, bj, btau, tp, fp, fn, tot, prec, rec, hm))
         if verbose:
             print(_row(stats_out[-1], scale))
+    if diag:
+        _set_diag(stats_out[-1], *_all_sum(group, *diag)[0].tolist(), n)
 
     return Fern(scale, tuple(chosen)), stats_out
 
@@ -322,6 +391,7 @@ def _train_forest_batched(
     rng: np.random.Generator,
     sub_n: int,
     verbose: bool,
+    group=None,
 ) -> Forest:
     """Train ALL ferns level-synchronously: one scorer pass per level
     covers every fern's candidate set over the stacked fern axis.
@@ -332,7 +402,8 @@ def _train_forest_batched(
     in the sequential path's exact order (bootstrap_k, then candidates_k
     per level), so the exported forest is BYTE-IDENTICAL to
     ``train_forest``'s fern-at-a-time loop.  ``triplets`` is the whole
-    dataset on the device; the (F, sub_n, 3, 729) stack is gathered there.
+    dataset on the device; the (F, sub_n, 3, 729) stack is gathered there,
+    with a ``group`` only this rank's share of its triplet axis.
     """
     n = triplets.shape[0]
     f = len(settings.ferns)
@@ -351,23 +422,30 @@ def _train_forest_batched(
         ])
 
     dev = triplets.device
-    patches = triplets[torch.as_tensor(idxs, device=dev)]
-    eq_pos = torch.ones((f, sub_n), dtype=torch.bool, device=dev)
+    lo, hi, size = _share(sub_n, group)
+    patches, valid = _padded(
+        triplets[torch.as_tensor(idxs[:, lo:hi], device=dev)], size)
+    eq_pos = torch.ones((f, size), dtype=torch.bool, device=dev)
     eq_neg = torch.ones_like(eq_pos)
-    split_pos = torch.zeros_like(eq_pos)
-    split_neg = torch.zeros_like(eq_pos)
+    split_pos = (~valid).repeat(f, 1)
+    split_neg = split_pos.clone()
 
     chosen: List[List[Test]] = [[] for _ in range(f)]
     stats_out: List[List[LevelStats]] = [[] for _ in range(f)]
+    diag = ()  # the last level's diagnostics, summed with the next counts
     t0 = time.perf_counter()
     for level in range(max_depth):
         cand_l = np.stack([cands[k][level] for k in range(f)]).astype(
             np.int32)  # (F, R, 2)
         include, tot_dev = _include_and_tot(split_pos, split_neg)
-        counts = _score_level_ferns(patches, cand_l, tau_lo, num_taus,
-                                    eq_pos, eq_neg,
-                                    include).cpu().numpy()  # (F, R, T, 3)
-        tots = tot_dev.cpu().numpy()
+        counts, tots, *diag = _all_sum(
+            group, _score_level_ferns(patches, cand_l, tau_lo, num_taus,
+                                      eq_pos, eq_neg, include),
+            tot_dev, *diag)
+        if diag:
+            _set_fern_diags(stats_out, diag[0], sub_n)
+        counts = counts.cpu().numpy()  # (F, R, T, 3)
+        tots = tots.cpu().numpy()
         bi = np.empty((f,), np.int32)
         bj = np.empty((f,), np.int32)
         bt = np.empty((f,), np.int32)
@@ -381,25 +459,23 @@ def _train_forest_batched(
                                                 eq_pos, eq_neg)
         eq_pos, eq_neg = _apply_level_ferns(patches, bi, bj, bt, eq_pos,
                                             eq_neg)
-        tp_alls, fp_alls = (v.cpu().numpy()
-                            for v in _diag_counts(eq_pos, eq_neg))
+        diag = [_diag_counts(eq_pos, eq_neg, valid)]
         for k in range(f):
             tp, fp, fn = best_counts_all[k]
             prec, rec, hm = _hmean(tp, fp, fn, optimizer.w1)
             ix, iy = _lin_to_xy(int(bi[k]))
             jx, jy = _lin_to_xy(int(bj[k]))
             chosen[k].append(Test(ix, iy, jx, jy, int(bt[k])))
-            tp_all, fp_all = int(tp_alls[k]), int(fp_alls[k])
             stats_out[k].append(
                 LevelStats(level, int(bi[k]), int(bj[k]), int(bt[k]),
-                           tp, fp, fn, int(tots[k]), prec, rec, hm,
-                           tp_all, fp_all, sub_n - tp_all - fp_all)
-            )
+                           tp, fp, fn, int(tots[k]), prec, rec, hm))
         if verbose:
             # liveness line per level: the fern-major tables only print at
             # the end
             print(f"level {level + 1}/{max_depth}: all {f} ferns scored "
                   f"(t=+{time.perf_counter() - t0:.2f} s)", flush=True)
+    if diag:
+        _set_fern_diags(stats_out, _all_sum(group, *diag)[0], sub_n)
     elapsed = time.perf_counter() - t0
 
     if verbose:
@@ -427,6 +503,7 @@ def train_forest(
     checkpoint_path: Optional[str] = None,
     batch_ferns: Optional[bool] = None,
     device="cuda",
+    group=None,
 ) -> Forest:
     """Train a forest on ``device``: per fern, bootstrap-subsample (with
     replacement, from the whole set — see module docstring) and train.
@@ -442,8 +519,13 @@ def train_forest(
     pass per level (see ``_train_forest_batched`` — byte-identical
     forest).  Default (None): batched whenever there is more than one
     fern, no incremental checkpointing is requested, AND the stacked
-    (F, sub_n, 3, 729) bootstrap fits ``BATCH_FERNS_BYTES_CAP``; explicit
-    ``batch_ferns=True`` bypasses the cap.
+    (F, sub_n, 3, 729) bootstrap fits ``BATCH_FERNS_BYTES_CAP`` on each
+    device; explicit ``batch_ferns=True`` bypasses the cap.
+
+    ``group``: a ``torch.distributed`` process group whose ranks split
+    each bootstrap's triplet axis (``train_fern``'s ``group``); every rank
+    passes the same triplets and seed and gets the same forest, the
+    one-device trainer's byte for byte.
     """
     rng = np.random.default_rng(seed)
     data = torch.as_tensor(triplets)
@@ -454,8 +536,11 @@ def train_forest(
     if batch_ferns is None:
         stack_bytes = (len(settings.ferns) * sub_n * 3 * 729
                        * data.element_size())
+        # with a group the stack's triplet axis is split over the ranks,
+        # so the budget is per device
+        ranks = dist.get_world_size(group) if group is not None else 1
         batch_ferns = (checkpoint_path is None and len(settings.ferns) > 1
-                       and stack_bytes <= BATCH_FERNS_BYTES_CAP)
+                       and stack_bytes // ranks <= BATCH_FERNS_BYTES_CAP)
     if batch_ferns and checkpoint_path is not None:
         raise ValueError(
             "batch_ferns trains all ferns concurrently; per-fern "
@@ -464,19 +549,19 @@ def train_forest(
     data = data.to(device)
     if batch_ferns:
         return _train_forest_batched(data, settings, optimizer, rng, sub_n,
-                                     verbose)
+                                     verbose, group)
+    lo, hi, size = _share(sub_n, group)
     ferns = []
     for k, scale in enumerate(settings.ferns):
         idx = rng.integers(0, n, size=sub_n)
-        sub = data[torch.as_tensor(idx, device=data.device)]
+        patches, valid = _padded(
+            data[torch.as_tensor(idx[lo:hi], device=data.device)], size)
         if verbose:
             print(f"Fern({k + 1}/{len(settings.ferns)}) num samples: {sub_n}")
             print("*" * 90)
         t0 = time.perf_counter()
-        fern, _ = train_fern(
-            sub, scale, optimizer, settings.max_depth, rng=rng,
-            verbose=verbose, device=data.device,
-        )
+        fern, _ = _train_fern(patches, valid, sub_n, scale, optimizer,
+                              settings.max_depth, rng, None, verbose, group)
         if verbose:
             print(f"done in {time.perf_counter() - t0:.2f} s\n")
         ferns.append(fern)

@@ -9,8 +9,8 @@ where the run is deterministic, the same stderr too.  The port's outputs
 are also held to the checks of the JAX package's own CLI tests
 (``tests/test_api.py``), run on the port's own builders.  The host
 matchers are held to the native oracle.  ``--data-parallel`` and
-``--shard-frame`` above 1 exit 1 in the port, naming the builders that are
-not ported yet.
+``--shard-frame`` above 1 exit 1 outside a torchrun launch, naming the
+launch; over ranks they are in ``tests/test_torch_cli_parallel.py``.
 """
 
 import collections
@@ -222,7 +222,8 @@ def test_cli_global_contracts_byte_identical(contract, tmp_path, capfd):
 def test_cli_flag_combinations_smoke(tmp_path, capfd):
     """--pyramid with --densify and --trace together (single pair), and
     --contract flat refused in sequence mode; --shard-frame in sequence
-    mode, which the JAX CLI runs on its 2-D mesh, exits 1 in the port."""
+    mode, which the JAX CLI runs on its 2-D mesh, needs a torchrun launch
+    in the port and exits 1 without one."""
     left, right = make_pair(64, 96, 3, seed=5)
     lp, rp = pair_paths(tmp_path, "p", left, right)
     j, t = run_both(tmp_path, lambda d: [
@@ -243,9 +244,11 @@ def test_cli_flag_combinations_smoke(tmp_path, capfd):
         FOREST, str(ldir), str(rdir), "--contract", "flat", "--out",
         str(d / "x" / "d.png")], capfd, tag="flat")
     assert t.rc == 1
+    capfd.readouterr()
     assert tcli.main([FOREST, str(ldir), str(rdir), "--shard-frame", "2",
                       "--out", str(tmp_path / "x" / "d.png"), "--device",
                       "cpu"]) == 1
+    assert "torchrun --nproc-per-node 2" in capfd.readouterr().err
 
 
 def test_cli_max_tests_fast_preset(tmp_path, capfd):
@@ -407,8 +410,12 @@ def test_cli_repeats_and_capacity(tmp_path, capfd):
 @pytest.mark.parametrize("sequence", [False, True],
                          ids=["single_pair", "sequence"])
 @pytest.mark.parametrize("flag", ["--data-parallel", "--shard-frame"])
-def test_cli_refuses_unported_multi_device(flag, sequence, tmp_path, capfd):
-    """N > 1 exits 1 before any work, naming the builders not ported."""
+def test_cli_refuses_multi_device_without_torchrun(flag, sequence, tmp_path,
+                                                   capfd):
+    """N > 1 outside a torchrun launch exits 1 naming the launch that runs
+    it (one rank a device), where the JAX CLI checks its device count;
+    single-pair --data-parallel keeps the JAX CLI's own refusal.  N = 1 is
+    a no-op, as in the JAX CLI."""
     left, right = make_pair(64, 96, 3, seed=5)
     if sequence:
         ldir, rdir = tmp_path / "l", tmp_path / "r"
@@ -424,10 +431,14 @@ def test_cli_refuses_unported_multi_device(flag, sequence, tmp_path, capfd):
                     str(tmp_path / "o" / "d.png")])
     err = capfd.readouterr().err
     assert rc == 1
-    assert f"{flag} 2: " in err and "not ported to opengpc_tpu_torch" in err
-    assert "parallel.build_batched_" in err
-    assert not (tmp_path / "o").exists()
-    # N = 1 is a no-op, as in the JAX CLI
+    if flag == "--data-parallel" and not sequence:
+        assert "--data-parallel applies to sequence (directory) mode " \
+            "only" in err
+    else:
+        assert f"{flag} 2: one rank a device" in err
+        assert (f"torchrun --nproc-per-node 2 -m "
+                f"opengpc_tpu_torch.cli.sparsematch ... {flag} 2") in err
+    assert not list((tmp_path / "o").glob("*"))
     assert tcli.main([FOREST, lp, rp, flag, "1", "--device", "cpu", "--out",
                       str(tmp_path / "o" / "d.png")]) == 0
 

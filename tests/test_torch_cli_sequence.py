@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import opengpc_tpu.cli.sparsematch as jcli
 import opengpc_tpu_torch.cli.sparsematch as tcli
 from opengpc_tpu_torch import (InferenceSettings, build_sparsematch,
                                load_forest, supports_to_numpy)
@@ -52,6 +53,26 @@ def seq(dirs, *extra):
     """argv of a sequence run writing under ``d/out``."""
     return lambda d: [FOREST, *dirs, *DH, "--out",
                       str(d / "out" / "d.png"), *extra]
+
+
+def run_over_ranks(tmp_path, argv, n, capfd, tag):
+    """The JAX CLI in process and the port's over n gloo ranks (``--device
+    cpu``) on ``argv(out_dir)``, into ``<tag>_jax`` and ``<tag>_torch``:
+    equal exit codes and byte-identical files.  Returns rank 0's Run."""
+    from test_torch_cli import Run, _files
+    from test_torch_cli_parallel import launch
+
+    jd, td = tmp_path / f"{tag}_jax", tmp_path / f"{tag}_torch"
+    jd.mkdir()
+    td.mkdir()
+    capfd.readouterr()
+    jrc = jcli.main(argv(jd))
+    capfd.readouterr()
+    ranks = launch("opengpc_tpu_torch.cli.sparsematch",
+                   argv(td) + ["--device", "cpu"], n, tmp_path)
+    assert all(rc == jrc for rc, _, _ in ranks), [e for _, _, e in ranks]
+    assert _files(td) == _files(jd), tag
+    return Run(ranks[0][0], ranks[0][2], _files(td))
 
 
 def frame_sets(out_dir, n):
@@ -262,9 +283,9 @@ def test_cli_sequence_randomized_policy_fuzz(tmp_path, capfd):
     """Random density patterns x --batch x pyramid through the adaptive
     policy (probe, compact, overflow guard, hysteresis, resume): each
     frame equals a non-adaptive baseline and the JAX CLI's bytes.  The
-    draw is the JAX test's; its --data-parallel 2 trials run on one device
-    here (the port refuses the flag, and the JAX CLI's outputs do not
-    depend on it)."""
+    draw is the JAX test's; its --data-parallel 2 trials run the port over
+    2 gloo ranks (``test_torch_cli_parallel.launch``) against the JAX CLI
+    with the flag on its virtual devices."""
     seed = int(os.environ.get("OGPC_FUZZ_SEED", 20260819))
     trials = int(os.environ.get("OGPC_FUZZ_TRIALS", 2))
     rng = np.random.default_rng(seed)
@@ -285,8 +306,12 @@ def test_cli_sequence_randomized_policy_fuzz(tmp_path, capfd):
             ["--pyramid", "2"] if pyramid else ["--contract",
                                                 "masked-compact"])
         label = (t, n, p_dense, pyramid, dp, batch)
-        j, r = run_both(tmp_path, seq(dirs, *extra), capfd, tag=f"t{t}",
-                        same_err=False)
+        if dp == 2:
+            r = run_over_ranks(tmp_path, seq(dirs, *extra, "--data-parallel",
+                                             "2"), 2, capfd, tag=f"t{t}")
+        else:
+            j, r = run_both(tmp_path, seq(dirs, *extra), capfd, tag=f"t{t}",
+                            same_err=False)
         assert r.rc == 0, (label, r.err)
         if pyramid:
             want = single_pyramid_sets(tmp_path, dirs, n, capfd)

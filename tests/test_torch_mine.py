@@ -236,15 +236,17 @@ def test_cli_extract_flow_equals_jax(sintel_tree, tmp_path):
 
 
 def test_cli_train_errors(tmp_path, capsys):
-    """``--data-parallel N`` (N > 1) exits 1 naming the missing sharded
-    trainer; a file that is no triplet dataset exits 1 with one line."""
+    """``--data-parallel N`` (N > 1) outside a torchrun launch exits 1
+    naming the launch; a file that is no triplet dataset exits 1 with one
+    line."""
     from opengpc_tpu_torch.cli.train import main
 
     trips = str(tmp_path / "t.bin")
     ttriplets.save_triplets(np.zeros((4, 3, 729), np.uint8), trips)
     assert main([trips, str(tmp_path / "f.txt"), "--data-parallel", "2",
                  "--device", "cpu"]) == 1
-    assert "sharded trainer" in capsys.readouterr().err
+    assert ("torchrun --nproc-per-node 2 -m opengpc_tpu_torch.cli.train"
+            in capsys.readouterr().err)
     with open(trips, "ab") as f:
         f.write(b"\0")
     assert main([trips, str(tmp_path / "f.txt"), "--device", "cpu"]) == 1

@@ -2,7 +2,8 @@
 ``build_sharded_frame_sparsematch`` (on meshes of the conftest's virtual
 CPU devices) and against the port's single-device builders, for all four
 contracts: n = 1 with ``group=None``, n = 2, 4, 8 through the one-process
-helper, and n = 2, 4 over real gloo process groups in subprocesses.
+helper, and n = 2, 4 over real gloo process groups in subprocesses, which
+also run the batched, pyramid and 2-D builders and the sharded trainer.
 Buffers are compared bit for bit; the global contract's segments follow the
 bucket order, so against the single-device module it is compared as a
 support set."""
@@ -23,7 +24,7 @@ from opengpc_tpu.parallel import make_mesh
 import opengpc_tpu_torch as pt
 from opengpc_tpu_torch.parallel import (CONTRACTS, _run_in_one_process,
                                         build_sharded_frame_sparsematch,
-                                        gather_blocks, split_frame)
+                                        split_frame)
 from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,42 +156,72 @@ def test_one_process_helper_equals_gathered_ranks():
     blocks = [tuple(t[i * H // 2:(i + 1) * H // 2] for t in whole)
               for i in range(2)]
     assert all(torch.equal(a, b)
-               for a, b in zip(gather_blocks(blocks), whole))
+               for a, b in zip(mod.gather(blocks, 1, 2), whole))
     assert [s.shape for s in split_frame(left, 4)] == [(H // 4, W)] * 4
 
 
-def _spawn_gloo(tmp_path, n, left, right):
-    data = str(tmp_path / "pair.npz")
-    np.savez(data, left=left, right=right, forest=ZERO)
-    store = str(tmp_path / "store")
+TRIPLETS = 205  # a bootstrap of 143 and 205 triplets: pads at n = 2 and 4
+
+
+def _gloo_inputs():
+    """What every gloo rank runs on: the sparse frame, a batch of 8
+    pairs (dense and sparse by turns), a 224-row frame for the pyramid and
+    a triplet set whose counts divide by neither 2 nor 4."""
+    from test_train import make_triplets
+
+    left, right = scenes()["sparse"]
+    pairs = [make_pair(H, W, 9, seed=i) if i % 2
+             else make_sparse_pair(H, W, 9, density=0.3, seed=i)
+             for i in range(8)]
+    pleft, pright = make_pair(224, W, 9, seed=4)
+    return dict(left=left, right=right, forest=ZERO,
+                lefts=np.stack([p[0] for p in pairs]),
+                rights=np.stack([p[1] for p in pairs]), pleft=pleft,
+                pright=pright,
+                triplets=make_triplets(np.random.default_rng(7), TRIPLETS))
+
+
+@pytest.fixture(scope="module")
+def gloo(tmp_path_factory):
+    """The inputs and each rank's outputs of 2 and 4 gloo ranks in
+    subprocesses (``tests/torch_gloo_worker.py``), all six started at
+    once, each with a timeout."""
+    tmp = tmp_path_factory.mktemp("gloo")
+    inputs = _gloo_inputs()
+    data = str(tmp / "inputs.npz")
+    np.savez(data, **inputs)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     worker = os.path.join(REPO, "tests", "torch_gloo_worker.py")
-    outs = [str(tmp_path / f"rank{r}.npz") for r in range(n)]
+    runs = {n: [str(tmp / f"n{n}_rank{r}.npz") for r in range(n)]
+            for n in (2, 4)}
     procs = [subprocess.Popen(
-        [sys.executable, worker, store, str(n), str(r), data, outs[r]],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(n)]
+        [sys.executable, worker, str(tmp / f"store{n}"), str(n), str(r),
+         data, out], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for n, outs in runs.items() for r, out in enumerate(outs)]
     logs = []
     try:
         for p in procs:
-            logs.append(p.communicate(timeout=120)[0])
+            logs.append(p.communicate(timeout=240)[0])
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     assert all(p.returncode == 0 for p in procs), "\n".join(logs)
-    return [np.load(o) for o in outs]
+    return inputs, {n: [np.load(o) for o in outs]
+                    for n, outs in runs.items()}
 
 
 @pytest.mark.parametrize("n", [2, 4])
-def test_sharded_frame_over_gloo_process_groups(tmp_path, n):
+def test_sharded_frame_over_gloo_process_groups(gloo, n):
     """n ranks in n processes, halos by batch_isend_irecv, the global
     exchange by all_to_all_single and the flag by all_reduce(MAX): the
     joined blocks equal the one-process helper's and JAX's result."""
     jm, tm = masks()
-    left, right = scenes()["sparse"]
-    ranks = _spawn_gloo(tmp_path, n, left, right)
+    inputs, runs = gloo
+    left, right = inputs["left"], inputs["right"]
+    ranks = runs[n]
     for contract in CONTRACTS:
         js, ts = settings_pair(contract)
         mod = build_sharded_frame_sparsematch(tm, ts, contract=contract,
@@ -206,6 +237,123 @@ def test_sharded_frame_over_gloo_process_groups(tmp_path, n):
         jout = jbuild(jm, js, make_mesh(jax.devices()[:n]),
                       use_pallas=False, contract=contract)(left, right)
         assert_same(jout, tuple(want))
+
+
+def _whole(ranks, name, want):
+    """Every rank gathered the same whole result, ``want``'s leaves."""
+    for i, leaf in enumerate(leaves(want)):
+        for r in ranks:
+            np.testing.assert_array_equal(r[f"{name}/{i}"], leaf.numpy())
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_batched_builders_over_gloo_process_groups(gloo, n):
+    """The six batched contracts and the batched pyramid over n gloo
+    ranks: every rank's gathered result equals the one-process helper's
+    and JAX's on n virtual devices."""
+    import opengpc_tpu.parallel as jpar
+    import opengpc_tpu_torch.parallel as tpar
+
+    inputs, runs = gloo
+    lefts, rights = inputs["lefts"], inputs["rights"]
+    jf, tf = jt.load_forest(ZERO), pt.load_forest(ZERO)
+    mesh = make_mesh(jax.devices()[:n])
+    for contract in tpar.BATCHED_CONTRACTS + ("pyramid",):
+        js, ts = settings_pair("global-compact"
+                               if contract.startswith("global")
+                               else "masked")
+        name = ("build_batched_pyramid" if contract == "pyramid" else
+                "build_batched_sparsematch" + ("" if contract == "flat" else
+                                               "_" + contract.replace(
+                                                   "-", "_")))
+        kw = {"num_levels": 2} if contract == "pyramid" else {}
+        want = _run_in_one_process(
+            getattr(tpar, name)(tf, ts, device="cpu", **kw),
+            torch.from_numpy(lefts), torch.from_numpy(rights), n)
+        _whole(runs[n], f"batched/{contract}", want)
+        jkw = {"num_levels": 2} if contract == "pyramid" else {}
+        assert_same(getattr(jpar, name)(jf, js, mesh, use_pallas=False,
+                                        **jkw)(lefts, rights), want)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_pyramids_and_grids_over_gloo_process_groups(gloo, n):
+    """The row-sharded pyramid over n ranks, and the 2-D frame (three
+    contracts) and pyramid on every grid of n ranks: each rank's gathered
+    result equals the one-process helper's and JAX's (the pyramids in
+    JAX's per-rank block order)."""
+    import opengpc_tpu.parallel as jpar
+    import opengpc_tpu_torch.parallel as tpar
+
+    inputs, runs = gloo
+    jm, tm = masks()
+    js, ts = settings_pair("masked")
+    pl, pr = inputs["pleft"], inputs["pright"]
+    want = _run_in_one_process(
+        tpar.build_sharded_frame_pyramid(tm, ts, num_levels=2, device="cpu"),
+        torch.from_numpy(pl), torch.from_numpy(pr), n)
+    _whole(runs[n], "pyramid", want)
+    assert_same(jpar.build_sharded_frame_pyramid(
+        jm, js, make_mesh(jax.devices()[:n]), 2, use_pallas=False)(pl, pr),
+        want)
+    lefts, rights = inputs["lefts"], inputs["rights"]
+    tl, tr = torch.from_numpy(lefts), torch.from_numpy(rights)
+    for grid in ([(1, 2), (2, 1)] if n == 2 else [(2, 2), (1, 4), (4, 1)]):
+        tag = f"{grid[0]}x{grid[1]}"
+        mesh = jpar.make_mesh_2d(*grid)
+        for contract in CONTRACTS[:3]:
+            want = _run_in_one_process(
+                tpar.build_batched_sharded_frame_sparsematch(
+                    tm, ts, contract=contract, device="cpu"), tl, tr, grid)
+            _whole(runs[n], f"2d/{tag}/{contract}", want)
+            assert_same(jpar.build_batched_sharded_frame_sparsematch(
+                jm, js, mesh, use_pallas=False, contract=contract)(
+                lefts, rights), want)
+        want = _run_in_one_process(
+            tpar.build_batched_sharded_frame_pyramid(tm, ts, num_levels=2,
+                                                     device="cpu"),
+            tl, tr, grid)
+        _whole(runs[n], f"2dpyr/{tag}", want)
+        assert_same(jpar.build_batched_sharded_frame_pyramid(
+            jm, js, mesh, 2, use_pallas=False)(lefts, rights), want)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_trainer_over_gloo_process_groups(gloo, n):
+    """``train_forest(group=)`` over n ranks, the bootstrap padded to a
+    multiple of n: every rank's forest text equals the one-device port's
+    and JAX's ``mesh`` trainer's byte for byte, for the zero and tau
+    optimizers, batched and fern at a time; ``sharded_train_fern``'s fern
+    the one-device ``train_fern``'s; and the dry run
+    ``sharded_sparsematch_step`` passed on every rank."""
+    import opengpc_tpu.train as jtrain
+
+    import opengpc_tpu_torch.train as ttrain
+
+    inputs, runs = gloo
+    trips = inputs["triplets"]
+    assert int(0.7 * TRIPLETS) % n and TRIPLETS % n
+    mesh = make_mesh(jax.devices()[:n])
+    for kind in ("zero", "tau"):
+        jopt = getattr(jt, f"{kind}_optimizer")(num_resamples=4)
+        topt = getattr(pt, f"{kind}_optimizer")(num_resamples=4)
+        for batched in (True, False):
+            text = pt.serialize_forest(ttrain.train_forest(
+                trips, pt.fern_factory(1, 1, 1, 3), topt, seed=3,
+                verbose=False, batch_ferns=batched, device="cpu"))
+            jtext = jt.serialize_forest(jtrain.train_forest(
+                trips, jt.fern_factory(1, 1, 1, 3), jopt, seed=3,
+                verbose=False, batch_ferns=batched, mesh=mesh))
+            assert text == jtext
+            for r in runs[n]:
+                assert str(r[f"train/{kind}/{batched}"]) == text
+    fern, _ = ttrain.train_fern(trips, pt.forest.SCALE_L,
+                                pt.tau_optimizer(num_resamples=4), 3,
+                                rng=np.random.default_rng(5), verbose=False,
+                                device="cpu")
+    want = pt.serialize_forest(pt.forest.Forest((fern,)))
+    for r in runs[n]:
+        assert str(r["fern"]) == want and int(r["step"]) == 1
 
 
 def test_sharded_frame_rejects_bad_inputs():

@@ -100,7 +100,8 @@ def test_level_fold_equal_jax(ferns):
         got_inc = ttrain._include_and_tot(t[2][0], t[3][0])
         want_diag = jtrain._diag_counts(jnp.asarray(ep[0]), jnp.asarray(en[0]),
                                         jnp.ones((n,), bool))
-        got_diag = ttrain._diag_counts(t[0][0], t[1][0])
+        got_diag = ttrain._diag_counts(t[0][0], t[1][0],
+                                       torch.ones((n,), dtype=torch.bool))
     else:
         want = jtrain._apply_level_ferns(
             jnp.asarray(trips), jnp.asarray(i, jnp.int32),
@@ -113,7 +114,8 @@ def test_level_fold_equal_jax(ferns):
         got_inc = ttrain._include_and_tot(t[2], t[3])
         want_diag = jtrain._diag_counts_ferns(
             jnp.asarray(ep), jnp.asarray(en), jnp.ones((ferns, n), bool))
-        got_diag = ttrain._diag_counts(t[0], t[1])
+        got_diag = ttrain._diag_counts(t[0], t[1], torch.ones(
+            (ferns, n), dtype=torch.bool))
     want_marks = jtrain._mark_splits(*(jnp.asarray(a) for a in (sp, sn, ep, en)))
     got_marks = ttrain._mark_splits(t[2], t[3], t[0], t[1])
     for w, g in zip(list(want) + list(want_inc) + list(want_diag)
