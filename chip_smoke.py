@@ -17,11 +17,16 @@ bitonic sort) and ``extract_descriptors``; the row-sharded single frame
 one process) and one census call; the one-call on PNG paths, the
 native host decode against the numpy one, the pyramid (``levels`` 2, 3
 and 5, the flat fallback, the batched fold, the compact pyramid) and
-``build_stereomatch``.  The offline workflow follows: the device triplet
-extraction against the numpy one, forest training on the card at ~10^6
-triplets (fern at a time equal to batched, the card's forest equal to the
-CPU's on a subset, each forest held to the pretrained one on a held-out
-scene), and the ``extract`` and ``train`` CLIs on a Sintel-layout tree
+``build_stereomatch``.  Every kernel is a ``torch.library`` custom op,
+and ``opcheck`` holds each on CUDA inputs; matchers exported with
+``torch.export`` (``opengpc_tpu_torch.aot``) are saved, loaded and
+served on the card against their live modules, through the Python API
+and the ``cli.aot`` CLI, the sharded-frame artifact at world 1.  The
+offline workflow follows: the device triplet extraction against the
+numpy one, forest training on the card at ~10^6 triplets (fern at a time
+equal to batched, the card's forest equal to the CPU's on a subset, each
+forest held to the pretrained one on a held-out scene), and the
+``extract`` and ``train`` CLIs on a Sintel-layout tree
 whose fresh forest then matches through the key kernel.  Then the
 ``sparsematch`` CLI on PNG pairs (every contract, the pyramid, densify,
 both colormaps and the host matchers, each against ``--device cpu``'s
@@ -3135,6 +3140,233 @@ def phase_multi_device(td, oracle, paths, launches, train_ref, smi):
         raise SystemExit(f"multi_device failed: {failures[:20]}")
 
 
+def phase_custom_ops(masks):
+    """``torch.library.opcheck`` on every ``ogpc::`` op with CUDA inputs:
+    the schema, the autograd registration, the fake against the card's
+    outputs and a trace with dynamic shapes, on the dense 436x1024 pair
+    and an odd 37x130 one, with the zero and tau forests where the op
+    takes tests.  Any failure fails the run."""
+    import torch.nn.functional as F
+
+    from opengpc_tpu_torch.match import SENTINEL_BASE
+    from opengpc_tpu_torch.ops import library
+    from opengpc_tpu_torch.ops.fused import PAD, op_tests
+    from opengpc_tpu_torch.ops.sort import padded_row_length
+    from opengpc_tpu_torch.utils import make_pair
+
+    rng = np.random.default_rng(11)
+    pairs = {"436x1024": make_pair(H, W, TRUE_DISP),
+             "37x130": make_pair(37, 130, 3, seed=7)}
+    results, failures = {}, []
+
+    def check(key, name, args):
+        try:
+            res = torch.library.opcheck(library.OPS[name], args)
+        except Exception as e:  # noqa: BLE001  (reported, then fails)
+            failures.append(f"{key}: {type(e).__name__}: {str(e)[:400]}")
+            return
+        results[key] = res
+        if any(v != "SUCCESS" for v in res.values()):
+            failures.append(f"{key}: {res}")
+
+    for sname, pair in pairs.items():
+        ld, rd = (torch.from_numpy(a).cuda() for a in pair)
+        h, w = ld.shape
+        sh, y0 = h // 2, h // 4
+        slabs = [F.pad(x, (0, 0, PAD, PAD))[y0:y0 + sh + 2 * PAD]
+                 .contiguous() for x in (ld, rd)]
+        n2 = padded_row_length(w)
+        key = torch.from_numpy(rng.integers(0, 1 << 20, (h, n2),
+                                            dtype=np.int32)).cuda()
+        pay = torch.arange(n2, dtype=torch.int32,
+                           device="cuda").expand(h, -1).contiguous()
+        check(f"fused_census/{sname}", "fused_census", (ld,))
+        check(f"bitonic_sort_rows/{sname}", "bitonic_sort_rows", (key, pay))
+        for fname in ("zero", "tau"):
+            t = op_tests(masks[fname])
+            for name, args in (
+                    ("fused_key_image", (ld[None], rd[None], t, 5,
+                                         SENTINEL_BASE)),
+                    ("fused_key_image_slab", (slabs[0][None],
+                                              slabs[1][None], t, 5,
+                                              SENTINEL_BASE, y0, h)),
+                    ("fused_keys", (ld, t, 5, w, SENTINEL_BASE, 0)),
+                    ("fused_keys_slab", (slabs[0], t, 5, 0, SENTINEL_BASE,
+                                         y0, h)),
+                    ("fused_codes", (ld, t, 5)),
+                    ("fused_codes_pair", (ld, rd, t, 5)),
+                    ("fused_sparsematch_rows", (ld, rd, t, 5, 128))):
+                check(f"{name}/{sname}/{fname}", name, args)
+    emit("custom_ops", ops=sorted(library.OPS), cases=len(results),
+         tests=sorted({k for r in results.values() for k in r}),
+         failures=failures[:10])
+    if failures:
+        raise SystemExit(f"opcheck failed: {failures[:10]}")
+
+
+AOT_CLI = "opengpc_tpu_torch.cli.aot"
+
+
+def phase_aot(td, oracle, paths, launches, smi):
+    """Export, save, load and call on the card: masked at the CLI's
+    settings, global-rows at the library defaults, masked-compact and the
+    pyramid at 3 levels; each loaded program equal to its live module bit
+    for bit with exact launches (``fused_keys`` once a call, once a level
+    for the pyramid), the compact artifact raising ``OverflowError`` on
+    the dense frame.  Then ``cli.aot export`` and ``run`` in fresh
+    processes (the supports file equal to the one-call ``sparsematch``'s
+    and through the oracle gate), the sharded-frame artifact at world 1
+    over a one-rank NCCL group (one slab-mode launch a call), and the
+    loaded and live masked and global-rows modules timed at B = 1."""
+    import torch.distributed as dist
+
+    from opengpc_tpu_torch import (InferenceSettings, aot,
+                                   build_sparsematch_global_rows,
+                                   build_sparsematch_masked,
+                                   build_sparsematch_masked_compact,
+                                   sparsematch)
+    from opengpc_tpu_torch.io.supports import read_supports
+    from opengpc_tpu_torch.parallel import build_sharded_frame_sparsematch
+    from opengpc_tpu_torch.pyramid import build_pyramid_sparsematch
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    forest = paths["defaultZeroForest"]
+    mask = load_mask(forest)
+    epi = InferenceSettings(**SETTINGS_KW)
+    scenes = {"dense": make_pair(H, W, TRUE_DISP),
+              "sparse": make_sparse_pair(H, W, TRUE_DISP, density=0.15)}
+    on_card = {s: tuple(torch.from_numpy(a).cuda() for a in p)
+               for s, p in scenes.items()}
+    lp, rp = write_pair_pngs(td, "aot", *scenes["dense"])
+    art = os.path.join(td, "cli.ogpcx")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t_cli = time.perf_counter()
+    export = subprocess.Popen(
+        [sys.executable, "-m", AOT_CLI, "export", forest, art, "--height",
+         str(H), "--width", str(W)], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cases = (  # contract, settings, live builder, scenes, launches a call
+        ("masked", epi, build_sparsematch_masked, ("dense",), 1),
+        ("global-rows", InferenceSettings(), build_sparsematch_global_rows,
+         ("dense",), 1),
+        ("masked-compact", epi, build_sparsematch_masked_compact,
+         ("sparse", "dense"), 1),
+        ("pyramid", epi, lambda m, s, device: build_pyramid_sparsematch(
+            m, s, num_levels=3, device=device), ("dense",), 3))
+    failures, report, timing, served = [], {}, {}, {}
+    for contract, settings, build, names, per_call in cases:
+        t0 = time.perf_counter()
+        blob = aot.export_sparsematch(mask, settings, (H, W), contract,
+                                      device="cuda", num_levels=3)
+        t1 = time.perf_counter()
+        path = os.path.join(td, f"{contract}.ogpcx")
+        aot.save_artifact(path, blob, contract=contract, settings=settings,
+                          shape=(H, W), device="cuda",
+                          extra=({"num_levels": 3}
+                                 if contract == "pyramid" else None))
+        call, meta = aot.load_artifact(path)
+        t2 = time.perf_counter()
+        live = build(mask, settings, device="cuda")
+        served[contract] = (call, live)
+        rep = dict(artifact_bytes=os.path.getsize(path), export_s=t1 - t0,
+                   load_s=t2 - t1)
+        expect = {"fused_keys": per_call}
+        for scene in names:
+            ld, rd = on_card[scene]
+            key = f"aot/{contract}/{scene}"
+            out, counts = launches.run(key + "/loaded",
+                                       lambda: call(ld, rd), expect)
+            want, _ = launches.run(key + "/live", lambda: live(ld, rd),
+                                   expect)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(_leaves(out), _leaves(want), strict=True))
+            rep[scene] = dict(launches=counts, equals_live=same)
+            if not same:
+                failures.append(f"{key}: loaded differs from the live module")
+            if contract == "masked-compact" and scene == "dense":
+                try:
+                    aot.decode_outputs(meta, out)
+                    failures.append(f"{key}: no OverflowError")
+                except OverflowError:
+                    rep[scene]["overflow_error"] = True
+                continue
+            sup = aot.decode_outputs(meta, out)
+            if contract != "pyramid":
+                ok, gate = oracle_gate(oracle, *scenes[scene], forest, sup,
+                                       settings)
+                rep[scene].update(gate)
+                if not ok:
+                    failures.append(f"{key}: oracle gate {gate}")
+            elif not len(sup):
+                failures.append(f"{key}: no supports")
+        report[contract] = rep
+
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as sd:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(sd, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            blob = aot.export_sharded_frame(mask, epi, (H, W),
+                                            dist.group.WORLD, "masked",
+                                            device="cuda")
+            call = aot.load_sharded_frame(blob)
+            live = build_sharded_frame_sparsematch(
+                mask, epi, group=dist.group.WORLD, device="cuda")
+            ld, rd = on_card["dense"]
+            expect = {"fused_keys_slab": 1}
+            out, counts = launches.run("aot/sharded_frame/n1/loaded",
+                                       lambda: call(ld, rd), expect)
+            want, _ = launches.run("aot/sharded_frame/n1/live",
+                                   lambda: live.run_whole(ld, rd), expect)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(_leaves(out), _leaves(want), strict=True))
+            report["sharded_frame_n1"] = dict(
+                artifact_bytes=len(blob), launches=counts, equals_live=same)
+            if not same:
+                failures.append("aot/sharded_frame/n1: loaded differs from "
+                                "the live module")
+        finally:
+            dist.destroy_process_group()
+
+    ld, rd = on_card["dense"]
+    for contract in ("masked", "global-rows"):
+        call, live = served[contract]
+        timing[contract] = {
+            name: dict(events_ms=cuda_ms(lambda: fn(ld, rd), 50),
+                       **{k: v for k, v in device_profile(
+                           lambda: fn(ld, rd), 20).items()
+                          if k in ("device_ms", "wall_ms", "busy_share",
+                                   "launches", "usable")})
+            for name, fn in (("loaded", call), ("live", live))}
+
+    out_text = export.communicate(timeout=300)[0]
+    sup_path = os.path.join(td, "cli_supports.txt")
+    run = subprocess.run(
+        [sys.executable, "-m", AOT_CLI, "run", art, lp, rp,
+         "--supports-out", sup_path, "--repeats", "5"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    cli = dict(export_rc=export.returncode, run_rc=run.returncode,
+               seconds=time.perf_counter() - t_cli)
+    if export.returncode or run.returncode:
+        failures.append(f"cli: {out_text[-800:]} {run.stdout[-400:]} "
+                        f"{run.stderr[-800:]}")
+    else:
+        got = read_supports(sup_path)
+        want = sparsematch(lp, rp, forest, InferenceSettings(
+            gradient_threshold=5, disp_high=128, vertical_tolerance=0,
+            epipolar_mode=True, capacity=65536), device="cuda")
+        ok, gate = oracle_gate(oracle, *scenes["dense"], forest, got, epi)
+        cli.update(gate, equals_one_call=bool(np.array_equal(got, want)),
+                   tTotal_ms=tt_ms(run.stdout))
+        if not (ok and cli["equals_one_call"]):
+            failures.append(f"cli: {cli}")
+    emit("aot", nvidia_smi=smi, checks=report, cli=cli, times=timing,
+         failures=failures)
+    if failures:
+        raise SystemExit(f"aot failed: {failures}")
+
+
 def load_mask(path):
     from opengpc_tpu_torch import load_forest, make_filter_mask
 
@@ -3160,6 +3392,7 @@ def main():
                 "fused_keys_slab": phase_slab_vs_twin(masks)}
         oracle = build_oracle()
         errs["fused_census"] = phase_census_vs_twin(oracle)
+        phase_custom_ops(masks)
         launches = Launches()
         phase_main_path(oracle, launches)
         phase_routes(oracle, paths, launches)
@@ -3171,6 +3404,7 @@ def main():
         phase_native_decode(smi, paths)
         phase_pyramid(oracle, paths, launches)
         phase_stereomatch(paths, launches)
+        phase_aot(td, oracle, paths, launches, smi)
         phase_mine_device()
         train_ref = phase_train(smi, paths)
         phase_workflow(td, oracle, paths, launches)

@@ -33,6 +33,13 @@ frame directories in sequence mode.  ``densify_supports`` and
 into a dense disparity map on the card, bit for bit JAX's; ``viz``,
 ``types`` and ``io.supports`` are numpy copies.
 
+The kernels are ``torch.library`` custom ops (``ops.library``, namespace
+``ogpc``), so ``torch.export`` traces every matcher: ``aot`` exports a
+contract's program for one frame shape (the forest burned in), saves it in
+a self-describing artifact and serves it again, and ``python -m
+opengpc_tpu_torch.cli.aot export|run`` is its CLI; the sharded exports
+hold one program a rank of a ``torchrun`` launch.
+
 >>> from opengpc_tpu_torch import InferenceSettings, sparsematch
 >>> supports = sparsematch(left, right, "forests/defaultZeroForest.txt")
 >>> from_files = sparsematch("left.png", "right.png",
@@ -48,9 +55,11 @@ into a dense disparity map on the card, bit for bit JAX's; ``viz``,
 from opengpc_tpu_torch.config import (ForestSettings, InferenceSettings,
                                       OptimizerSettings, fern_factory,
                                       tau_optimizer, zero_optimizer)
-from opengpc_tpu_torch.forest import (filter_mask_from_numpy, load_forest,
-                                      make_filter_mask, save_forest,
-                                      serialize_forest)
+from opengpc_tpu_torch.forest import (Fern, FilterMask, Forest, Test,
+                                      filter_mask_from_numpy, load_forest,
+                                      make_filter_mask, parse_forest,
+                                      save_forest, serialize_forest,
+                                      truncate_forest)
 from opengpc_tpu_torch.infer import (build_sparsematch,
                                      build_sparsematch_global_compact,
                                      build_sparsematch_global_rows,
@@ -62,6 +71,11 @@ from opengpc_tpu_torch.infer import (build_sparsematch,
                                      masked_supports_to_numpy,
                                      row_supports_to_numpy, sparsematch,
                                      supports_to_numpy)
+from opengpc_tpu_torch.aot import (export_batched_sharded_frame,
+                                   export_sharded_frame, export_sparsematch,
+                                   load_artifact, load_batched_sharded_frame,
+                                   load_sharded_frame, load_sparsematch,
+                                   peek_artifact_meta, save_artifact)
 from opengpc_tpu_torch.densify import densify_from_masked, densify_supports
 from opengpc_tpu_torch.io.triplets import load_triplets, save_triplets
 from opengpc_tpu_torch.train import train_fern, train_forest
@@ -72,11 +86,15 @@ __version__ = "0.5.0"
 __all__ = [
     "Correspondence",
     "Descriptor",
+    "Fern",
+    "FilterMask",
+    "Forest",
     "ForestSettings",
     "InferenceSettings",
     "OptimizerSettings",
     "Point",
     "Support",
+    "Test",
     "__version__",
     "build_sparsematch",
     "build_sparsematch_global_compact",
@@ -87,15 +105,25 @@ __all__ = [
     "build_stereomatch",
     "densify_from_masked",
     "densify_supports",
+    "export_batched_sharded_frame",
+    "export_sharded_frame",
+    "export_sparsematch",
     "extract_descriptors",
     "fern_factory",
     "filter_mask_from_numpy",
     "global_row_supports_to_numpy",
+    "load_artifact",
+    "load_batched_sharded_frame",
     "load_forest",
+    "load_sharded_frame",
+    "load_sparsematch",
     "load_triplets",
     "make_filter_mask",
     "masked_supports_to_numpy",
+    "parse_forest",
+    "peek_artifact_meta",
     "row_supports_to_numpy",
+    "save_artifact",
     "save_forest",
     "save_triplets",
     "serialize_forest",
@@ -104,5 +132,6 @@ __all__ = [
     "tau_optimizer",
     "train_fern",
     "train_forest",
+    "truncate_forest",
     "zero_optimizer",
 ]

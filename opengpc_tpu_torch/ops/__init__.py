@@ -1,1 +1,4 @@
-"""Preprocessing, leaf codes and the fused key kernel."""
+"""Preprocessing, leaf codes, the fused kernels and their custom ops
+(``ops.library``, registered on import)."""
+
+from opengpc_tpu_torch.ops import library  # noqa: F401

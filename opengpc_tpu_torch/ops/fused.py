@@ -7,18 +7,19 @@ sharded frame's), or the codes and candidates as two images
 (``fused_codes``, or ``fused_codes_pair`` for both images of a pair in
 one launch); and the 5x5 census (``fused_census``).
 
-Each wrapper launches its kernel (``csrc/fused_keys.cu``, whose slab mode
-makes the slab keys, ``csrc/fused_codes.cu``, ``csrc/fused_census.cu``;
-built at first use by ``ops._build``) on a CUDA tensor and raises on any
-failure; on a CPU tensor it runs its plain twin (``fused_keys_plain``,
-``fused_keys_slab_plain``, ``fused_codes_plain``,
-``ops.census.census5x5``).  The code twins share one body, the same math
-as whole-window tensor ops, written after ``opengpc_tpu.ops.fused``'s
-``tile_codes_and_cand`` with the image or slab as one tile; the code
-kernels share ``csrc/tile_codes.cuh``.  Each wrapper's ``launches``
-attribute counts its kernel launches (``fused_keys_slab.launches`` the
-key kernel's slab-mode ones), so a run can show that it went through the
-kernels.
+Each wrapper checks its arguments and calls its custom op
+(``ops.library``, namespace ``ogpc``), whose CUDA implementation launches
+the kernel (``csrc/fused_keys.cu``, whose slab mode makes the slab keys,
+``csrc/fused_codes.cu``, ``csrc/fused_census.cu``; built at first use by
+``ops._build``) and raises on any failure, and whose CPU implementation is
+the plain twin (``fused_keys_plain``, ``fused_keys_slab_plain``,
+``fused_codes_plain``, ``ops.census.census5x5``).  The code twins share
+one body, the same math as whole-window tensor ops, written after
+``opengpc_tpu.ops.fused``'s ``tile_codes_and_cand`` with the image or slab
+as one tile; the code kernels share ``csrc/tile_codes.cuh``.  Each
+wrapper's ``launches`` attribute counts its kernel launches
+(``fused_keys_slab.launches`` the key kernel's slab-mode ones), so a run
+can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from opengpc_tpu_torch.forest import MAX_TESTS, PATCH_HALF, FilterMask
+from opengpc_tpu_torch.ops import library
 from opengpc_tpu_torch.ops.preprocess import (CANDIDATE_MARGIN, _sobel_nums,
                                               require_u8)
 
@@ -47,7 +49,28 @@ def mask_tests(mask: FilterMask):
     return tuple(map(tuple, _tests_array(mask).tolist()))
 
 
-def _codes_body(x32: torch.Tensor, y0: int, h: int, mask: FilterMask,
+def op_tests(mask: FilterMask) -> list:
+    """The forest's tests as the ops' ``int[]`` argument: T * 5 python
+    ints, (iy, ix, jy, jx, tau) for each test (``ops.library``)."""
+    return _tests_array(mask).ravel().tolist()
+
+
+def _test_rows(tests):
+    """(iy, ix, jy, jx, tau) tuples of a FilterMask or of the ops' flat
+    test list."""
+    if isinstance(tests, FilterMask):
+        return mask_tests(tests)
+    return tuple(tuple(tests[i:i + 5]) for i in range(0, len(tests), 5))
+
+
+def _require_kernel(name: str, t: torch.Tensor) -> None:
+    """Only CPU tensors (the twins) and CUDA tensors (the kernels) have an
+    implementation of the ops."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for {t.device} tensors")
+
+
+def _codes_body(x32: torch.Tensor, y0: int, h: int, mask,
                 gradient_threshold: int):
     """The twins' one body: (int32 leaf codes, bool candidates) of image
     rows [y0, y0 + th) of an image of height ``h``, from the (..., th + 28,
@@ -55,7 +78,8 @@ def _codes_body(x32: torch.Tensor, y0: int, h: int, mask: FilterMask,
     14) and columns [-14, w + 14), zeros outside the image.  The box border
     and the candidate margin are taken in image rows, so a slab's rows are
     those of the whole image.  At 32 tests a code fills all 32 bits and
-    wraps as JAX's int32 ``code*2+bit`` does."""
+    wraps as JAX's int32 ``code*2+bit`` does.  ``mask`` is a FilterMask or
+    the ops' flat test list."""
     th, w = x32.shape[-2] - 2 * PAD, x32.shape[-1] - 2 * PAD
     dev = x32.device
     hc, wc = th + 26, w + 26  # code-support region: rows y0-13 .. y0+th+12
@@ -75,7 +99,7 @@ def _codes_body(x32: torch.Tensor, y0: int, h: int, mask: FilterMask,
     smooth = torch.where(box_valid, blurred, torch.zeros_like(blurred))
 
     code = torch.zeros(x32.shape[:-2] + (th, w), dtype=torch.int32, device=dev)
-    for iy, ix, jy, jx, tau in mask_tests(mask):
+    for iy, ix, jy, jx, tau in _test_rows(mask):
         a = smooth[..., 13 + iy:13 + iy + th, 13 + ix:13 + ix + w]
         b = smooth[..., 13 + jy:13 + jy + th, 13 + jx:13 + jx + w]
         code = code * 2 + (a > b - tau).to(torch.int32)
@@ -89,8 +113,7 @@ def _codes_body(x32: torch.Tensor, y0: int, h: int, mask: FilterMask,
     return code, grad & interior
 
 
-def fused_codes_plain(img: torch.Tensor, mask: FilterMask,
-                      gradient_threshold: int):
+def fused_codes_plain(img: torch.Tensor, mask, gradient_threshold: int):
     """Plain-PyTorch twin of the code kernel, and the body of the key
     kernel's twin: (int32 leaf codes, bool candidates) of a (..., H, W)
     uint8 image."""
@@ -106,9 +129,9 @@ def _keys(code, cand, pos_base, sentinel_base, pack_bits=0):
     return torch.where(cand, cand_key, pos + int(sentinel_base))
 
 
-def fused_keys_plain(img: torch.Tensor, mask: FilterMask,
-                     gradient_threshold: int, pos_base: int,
-                     sentinel_base: int, pack_bits: int = 0) -> torch.Tensor:
+def fused_keys_plain(img: torch.Tensor, mask, gradient_threshold: int,
+                     pos_base: int, sentinel_base: int,
+                     pack_bits: int = 0) -> torch.Tensor:
     """Plain-PyTorch twin of the key kernel on (..., H, W) uint8 -> int32:
     ``candidate ? code : sentinel_base + pos_base + x``, or
     ``(code << pack_bits) | (pos_base + x)`` for candidates when
@@ -134,9 +157,8 @@ def _slab_rows(slab: torch.Tensor, y0: int, h_total: int,
     return sh
 
 
-def fused_keys_slab_plain(slab: torch.Tensor, mask: FilterMask,
-                          gradient_threshold: int, pos_base: int,
-                          sentinel_base: int, y0: int,
+def fused_keys_slab_plain(slab: torch.Tensor, mask, gradient_threshold: int,
+                          pos_base: int, sentinel_base: int, y0: int,
                           h_total: int) -> torch.Tensor:
     """Plain-PyTorch twin of the slab key kernel: the (sh, W) keys of a
     (sh + 28, W) uint8 slab holding image rows [y0 - 14, y0 + sh + 14) of
@@ -167,16 +189,17 @@ def _check_args(mask: FilterMask, pack_bits: int) -> None:
         raise ValueError(f"pack_bits must be in 0..30, got {pack_bits}")
 
 
-def _launch(sides, out: torch.Tensor, mask: FilterMask,
-            gradient_threshold: int, sentinel_base: int, pack_bits: int,
-            slab=None) -> None:
+def _launch(sides, out: torch.Tensor, tests, gradient_threshold: int,
+            sentinel_base: int, pack_bits: int, slab=None) -> None:
     """One launch of the key kernel for one or two ``sides``, each a
     (B, R, W) CUDA batch, its first column in the (B, rows, Wout) int32
     ``out`` and its position base; on the current stream, without
-    synchronizing.  Whole images (``slab`` None, R = rows) count in
-    ``fused_keys.launches``; slab mode (``slab = (y0, h_total)``: each
-    image holds frame rows [y0 - 14, y0 + rows + 14) of an h_total-row
-    frame, R = rows + 28) in ``fused_keys_slab.launches``."""
+    synchronizing.  ``tests`` is the ops' flat test list.  Whole images
+    (``slab`` None, R = rows) count in ``fused_keys.launches``; slab mode
+    (``slab = (y0, h_total)``: each image holds frame rows [y0 - 14, y0 +
+    rows + 14) of an h_total-row frame, R = rows + 28) in
+    ``fused_keys_slab.launches``.  The CUDA implementation of the key
+    ops (``ops.library``)."""
     from opengpc_tpu_torch.ops._build import check_launch, load_library
 
     name = "fused_keys_slab" if slab else "fused_keys"
@@ -198,7 +221,7 @@ def _launch(sides, out: torch.Tensor, mask: FilterMask,
                              f"hold {tuple(img.shape)} at column {col}")
     img0, col0, pos0 = sides[0]
     img1, col1, pos1 = sides[1] if len(sides) > 1 else (None, 0, 0)
-    tests = _tests_array(mask)
+    tests = np.asarray(tests, dtype=np.int32)
     lib = load_library()
     with torch.cuda.device(img0.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -206,34 +229,29 @@ def _launch(sides, out: torch.Tensor, mask: FilterMask,
             img0.data_ptr(), img1.data_ptr() if img1 is not None else None,
             out.data_ptr(), b, rows, w, int(y0), int(h_total), halo,
             out.shape[2], rows * out.shape[2], col0, col1, int(pos0),
-            int(pos1), tests.ctypes.data, tests.shape[0],
+            int(pos1), tests.ctypes.data, tests.size // 5,
             int(gradient_threshold) ** 2, int(sentinel_base), int(pack_bits),
             stream)
     check_launch(name, rc)
     (fused_keys_slab if slab else fused_keys).launches += 1
 
 
-def _pair_keys(lefts: torch.Tensor, rights: torch.Tensor, mask: FilterMask,
-               gradient_threshold: int, sentinel_base: int, slab=None):
-    """The key images of two (B, R, W) uint8 batches of one shape on one
-    device, (B, rows, 2W) int32: the left keys (positions x) in columns
-    [0, W), the right keys (positions W + x) in [W, 2W).  One launch of
-    the key kernel (slab mode for ``slab = (y0, h_total)``, rows = R - 28)
-    on CUDA tensors; the plain twin of each side on CPU tensors."""
+def _pair_keys_plain(lefts: torch.Tensor, rights: torch.Tensor, mask,
+                     gradient_threshold: int, sentinel_base: int, slab=None):
+    """The plain twin of the pair key ops: the key images of two (B, R, W)
+    uint8 batches, (B, rows, 2W) int32, the left keys (positions x) in
+    columns [0, W), the right keys (positions W + x) in [W, 2W); slab mode
+    for ``slab = (y0, h_total)``, rows = R - 28."""
     b, r, w = lefts.shape
     rows = r - 2 * PAD if slab else r
     out = torch.empty((b, rows, 2 * w), dtype=torch.int32,
                       device=lefts.device)
-    if lefts.device.type == "cpu":
-        for img, col in ((lefts, 0), (rights, w)):
-            out[..., col:col + w] = (
-                fused_keys_slab_plain(img, mask, gradient_threshold, col,
-                                      sentinel_base, *slab) if slab else
-                fused_keys_plain(img, mask, gradient_threshold, col,
-                                 sentinel_base))
-        return out
-    _launch([(lefts.contiguous(), 0, 0), (rights.contiguous(), w, w)], out,
-            mask, gradient_threshold, sentinel_base, 0, slab)
+    for img, col in ((lefts, 0), (rights, w)):
+        out[..., col:col + w] = (
+            fused_keys_slab_plain(img, mask, gradient_threshold, col,
+                                  sentinel_base, *slab) if slab else
+            fused_keys_plain(img, mask, gradient_threshold, col,
+                             sentinel_base))
     return out
 
 
@@ -242,9 +260,10 @@ def fused_key_image(lefts: torch.Tensor, rights: torch.Tensor,
                     sentinel_base: int) -> torch.Tensor:
     """(B, H, 2W) int32 key images of a (B, H, W) batch of uint8 pairs:
     the left keys (positions x) in columns [0, W), the right keys
-    (positions W + x) in [W, 2W).  One launch of the key kernel for the
-    whole batch on CUDA tensors (counted in ``fused_keys.launches``); two
-    calls of the plain twin on CPU tensors."""
+    (positions W + x) in [W, 2W).  The op ``ogpc::fused_key_image``: one
+    launch of the key kernel for the whole batch on CUDA tensors (counted
+    in ``fused_keys.launches``), two calls of the plain twin on CPU
+    tensors."""
     require_u8(lefts)
     require_u8(rights)
     check_mask(mask)
@@ -254,7 +273,10 @@ def fused_key_image(lefts: torch.Tensor, rights: torch.Tensor,
                          f"on one device, got {tuple(lefts.shape)} on "
                          f"{lefts.device} and {tuple(rights.shape)} on "
                          f"{rights.device}")
-    return _pair_keys(lefts, rights, mask, gradient_threshold, sentinel_base)
+    _require_kernel("fused_key_image", lefts)
+    return library.fused_key_image(lefts, rights, op_tests(mask),
+                                   int(gradient_threshold),
+                                   int(sentinel_base))
 
 
 def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,
@@ -268,51 +290,57 @@ def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,
     concatenated (H, 2W) key image has unique per-row sentinels.
     ``pack_bits > 0`` emits candidates already pos-packed for the
     single-operand sort (``match._pack_keypos``'s layout; the caller must
-    satisfy ``match._pack_ok``).  One side of the key kernel's launch on a
-    CUDA tensor, ``fused_keys_plain`` on a CPU one."""
+    satisfy ``match._pack_ok``).  The op ``ogpc::fused_keys``: one side of
+    the key kernel's launch on a CUDA tensor, ``fused_keys_plain`` on a CPU
+    one."""
     require_u8(img)
     if img.dim() != 2:
         raise ValueError(f"expected an (H, W) image, got {tuple(img.shape)}")
     _check_args(mask, pack_bits)
-    if img.device.type == "cpu":
-        return fused_keys_plain(img, mask, gradient_threshold, pos_base,
-                                sentinel_base, pack_bits)
-    out = torch.empty((1,) + tuple(img.shape), dtype=torch.int32,
-                      device=img.device)
-    _launch([(img.contiguous()[None], 0, pos_base)], out, mask,
-            gradient_threshold, sentinel_base, pack_bits)
-    return out[0]
+    _require_kernel("fused_keys", img)
+    return library.fused_keys(img, op_tests(mask), int(gradient_threshold),
+                              int(pos_base), int(sentinel_base),
+                              int(pack_bits))
 
 
 fused_keys.launches = 0
 
 
-def _launch_codes(sides, mask: FilterMask, gradient_threshold: int) -> None:
-    """One launch of the code kernel for one or two ``sides``, each (img,
-    codes, cand): a contiguous (B, H, W) CUDA batch and its int32 codes and
-    bool candidates of the same shape; on the current stream, without
-    synchronizing."""
+def _codes_launch(imgs, tests, gradient_threshold: int):
+    """[(codes int32, candidates bool)] of one or two uint8 CUDA images of
+    one (H, W) or (B, H, W) shape: one launch of the code kernel on the
+    current stream, without synchronizing.  The CUDA implementation of the
+    code ops (``ops.library``)."""
     from opengpc_tpu_torch.ops._build import check_launch, load_library
 
-    img = sides[0][0]
+    first = imgs[0]
+    batch_shape = (-1,) + tuple(first.shape[-2:])
+    sides = []
+    for img in imgs:
+        batch = img.contiguous().reshape(batch_shape)
+        sides.append((batch, torch.empty(batch.shape, dtype=torch.int32,
+                                         device=first.device),
+                      torch.empty(batch.shape, dtype=torch.bool,
+                                  device=first.device)))
     ptrs = [t.data_ptr() for side in sides for t in side]
     img0, codes0, cand0, img1, codes1, cand1 = ptrs + [None] * (6 - len(ptrs))
-    tests = _tests_array(mask)
+    tests = np.asarray(tests, dtype=np.int32)
     lib = load_library()
-    with torch.cuda.device(img.device):
+    with torch.cuda.device(first.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.ogpc_fused_codes(
-            img0, img1, codes0, cand0, codes1, cand1, *img.shape,
-            tests.ctypes.data, tests.shape[0], int(gradient_threshold) ** 2,
+            img0, img1, codes0, cand0, codes1, cand1, *sides[0][0].shape,
+            tests.ctypes.data, tests.size // 5, int(gradient_threshold) ** 2,
             stream)
     check_launch("fused_codes", rc)
     fused_codes.launches += 1
+    return [(codes.reshape(first.shape), cand.reshape(first.shape))
+            for _, codes, cand in sides]
 
 
-def _fused_codes_sides(imgs, mask: FilterMask, gradient_threshold: int):
-    """[(codes int32, candidates bool)] of one or two uint8 images of one
-    (H, W) or (B, H, W) shape on one device: one launch of the code kernel
-    for CUDA tensors, the plain twin for each CPU one."""
+def _check_codes_args(imgs, mask: FilterMask) -> None:
+    """The code wrappers' checks: uint8 images of one (H, W) or (B, H, W)
+    shape on one device that has a kernel, and a mask the kernel takes."""
     for img in imgs:
         require_u8(img)
     check_mask(mask)
@@ -326,39 +354,30 @@ def _fused_codes_sides(imgs, mask: FilterMask, gradient_threshold: int):
                              f"on one device, got {tuple(first.shape)} on "
                              f"{first.device} and {tuple(img.shape)} on "
                              f"{img.device}")
-    if first.device.type == "cpu":
-        return [fused_codes_plain(img, mask, gradient_threshold)
-                for img in imgs]
-    if not first.is_cuda:
-        raise ValueError(f"fused_codes: no kernel for {first.device} tensors")
-    batch_shape = (-1,) + tuple(first.shape[-2:])
-    sides = []
-    for img in imgs:
-        batch = img.contiguous().reshape(batch_shape)
-        sides.append((batch, torch.empty(batch.shape, dtype=torch.int32,
-                                         device=first.device),
-                      torch.empty(batch.shape, dtype=torch.bool,
-                                  device=first.device)))
-    _launch_codes(sides, mask, gradient_threshold)
-    return [(codes.reshape(first.shape), cand.reshape(first.shape))
-            for _, codes, cand in sides]
+    _require_kernel("fused_codes", first)
 
 
 def fused_codes(img: torch.Tensor, mask: FilterMask,
                 gradient_threshold: int):
     """(codes int32, candidates bool) of an (H, W) or (B, H, W) uint8
-    image in one fused pass: the kernel of ``csrc/fused_codes.cu`` for a
-    CUDA tensor, ``fused_codes_plain`` for a CPU one."""
-    return _fused_codes_sides([img], mask, gradient_threshold)[0]
+    image in one fused pass: the op ``ogpc::fused_codes``, the kernel of
+    ``csrc/fused_codes.cu`` for a CUDA tensor, ``fused_codes_plain`` for a
+    CPU one."""
+    _check_codes_args([img], mask)
+    return library.fused_codes(img, op_tests(mask), int(gradient_threshold))
 
 
 def fused_codes_pair(left: torch.Tensor, right: torch.Tensor,
                      mask: FilterMask, gradient_threshold: int):
     """((codes, candidates) of ``left``, (codes, candidates) of ``right``)
-    for two uint8 images (or batches) of one shape: one launch of the code
-    kernel for both on CUDA tensors (counted in ``fused_codes.launches``),
-    two calls of ``fused_codes_plain`` on CPU tensors."""
-    return tuple(_fused_codes_sides([left, right], mask, gradient_threshold))
+    for two uint8 images (or batches) of one shape: the op
+    ``ogpc::fused_codes_pair``, one launch of the code kernel for both on
+    CUDA tensors (counted in ``fused_codes.launches``), two calls of
+    ``fused_codes_plain`` on CPU tensors."""
+    _check_codes_args([left, right], mask)
+    cl, vl, cr, vr = library.fused_codes_pair(left, right, op_tests(mask),
+                                              int(gradient_threshold))
+    return (cl, vl), (cr, vr)
 
 
 fused_codes.launches = 0
@@ -370,9 +389,8 @@ def fused_keys_slab_into(slab: torch.Tensor, out: torch.Tensor,
                          sentinel_base: int, y0: int, h_total: int) -> None:
     """Write the keys of a (sh + 28, W) uint8 slab (see
     :func:`fused_keys_slab_plain`) into columns [col_offset, col_offset +
-    W) of the (sh, Wout) int32 ``out``: one side of the key kernel's
-    launch in slab mode (``csrc/fused_keys.cu``) for a CUDA tensor, the
-    plain twin for a CPU one."""
+    W) of the (sh, Wout) int32 ``out``: :func:`fused_keys_slab`'s result
+    copied in."""
     sh = _slab_rows(slab, y0, h_total)
     check_mask(mask)
     w = slab.shape[1]
@@ -384,13 +402,8 @@ def fused_keys_slab_into(slab: torch.Tensor, out: torch.Tensor,
     if out.device != slab.device:
         raise ValueError(f"fused_keys_slab: slab on {slab.device}, output "
                          f"on {out.device}")
-    if slab.device.type == "cpu":
-        out[:, col_offset:col_offset + w] = fused_keys_slab_plain(
-            slab, mask, gradient_threshold, pos_base, sentinel_base, y0,
-            h_total)
-        return
-    _launch([(slab.contiguous()[None], col_offset, pos_base)], out[None],
-            mask, gradient_threshold, sentinel_base, 0, (y0, h_total))
+    out[:, col_offset:col_offset + w] = fused_keys_slab(
+        slab, mask, gradient_threshold, pos_base, sentinel_base, y0, h_total)
 
 
 def fused_keys_slab(slab: torch.Tensor, mask: FilterMask,
@@ -402,13 +415,15 @@ def fused_keys_slab(slab: torch.Tensor, mask: FilterMask,
     image of ``h_total`` rows, zeros outside the image.  Equal to rows
     [y0, y0 + sh) of :func:`fused_keys` on the whole image: the box border
     and the candidate margin are taken in image rows.  ``y0`` is a host
-    int, the kernel's row offset."""
-    sh = _slab_rows(slab, y0, h_total)
-    out = torch.empty((sh, slab.shape[1]), dtype=torch.int32,
-                      device=slab.device)
-    fused_keys_slab_into(slab, out, 0, mask, gradient_threshold, pos_base,
-                         sentinel_base, y0, h_total)
-    return out
+    int, the kernel's row offset.  The op ``ogpc::fused_keys_slab``: one
+    side of the key kernel's slab-mode launch (``csrc/fused_keys.cu``) for
+    a CUDA tensor, the plain twin for a CPU one."""
+    _slab_rows(slab, y0, h_total)
+    check_mask(mask)
+    _require_kernel("fused_keys_slab", slab)
+    return library.fused_keys_slab(slab, op_tests(mask),
+                                   int(gradient_threshold), int(pos_base),
+                                   int(sentinel_base), int(y0), int(h_total))
 
 
 fused_keys_slab.launches = 0
@@ -424,8 +439,9 @@ def fused_key_image_slab(lefts: torch.Tensor, rights: torch.Tensor,
     holding frame rows [y0 - 14, y0 + sh + 14) of an ``h_total``-row
     frame, zeros outside it.  The left keys (positions x) go to columns
     [0, W), the right keys (positions W + x) to [W, 2W): rows [y0, y0 +
-    sh) of :func:`fused_key_image` on the whole frame.  One slab-mode
-    launch of the key kernel for all of them on CUDA tensors (counted in
+    sh) of :func:`fused_key_image` on the whole frame.  The op
+    ``ogpc::fused_key_image_slab``: one slab-mode launch of the key kernel
+    for all of them on CUDA tensors (counted in
     ``fused_keys_slab.launches``); the plain twin of each side on CPU
     tensors."""
     if lefts.shape != rights.shape or lefts.device != rights.device:
@@ -435,25 +451,17 @@ def fused_key_image_slab(lefts: torch.Tensor, rights: torch.Tensor,
     _slab_rows(lefts, y0, h_total, batch=True)
     require_u8(rights)
     check_mask(mask)
+    _require_kernel("fused_key_image_slab", lefts)
     batch = (-1,) + tuple(lefts.shape[-2:])
-    keys = _pair_keys(lefts.reshape(batch), rights.reshape(batch), mask,
-                      gradient_threshold, sentinel_base, (y0, h_total))
+    keys = library.fused_key_image_slab(
+        lefts.reshape(batch), rights.reshape(batch), op_tests(mask),
+        int(gradient_threshold), int(sentinel_base), int(y0), int(h_total))
     return keys.reshape(lefts.shape[:-2] + keys.shape[-2:])
 
 
-def fused_census(img: torch.Tensor) -> torch.Tensor:
-    """(H, W) int32 5x5 census codes of an (H, W) uint8 image in one
-    pass: the kernel of ``csrc/fused_census.cu`` for a CUDA tensor,
-    ``ops.census.census5x5`` (its plain twin) for a CPU one."""
-    from opengpc_tpu_torch.ops.census import census5x5
-
-    require_u8(img)
-    if img.dim() != 2:
-        raise ValueError(f"expected an (H, W) image, got {tuple(img.shape)}")
-    if img.device.type == "cpu":
-        return census5x5(img)
-    if not img.is_cuda:
-        raise ValueError(f"fused_census: no kernel for {img.device} tensors")
+def _census_launch(img: torch.Tensor) -> torch.Tensor:
+    """One launch of the census kernel on an (H, W) uint8 CUDA image: the
+    CUDA implementation of ``ogpc::fused_census``."""
     from opengpc_tpu_torch.ops._build import check_launch, load_library
 
     img = img.contiguous()
@@ -466,6 +474,18 @@ def fused_census(img: torch.Tensor) -> torch.Tensor:
     check_launch("fused_census", rc)
     fused_census.launches += 1
     return out
+
+
+def fused_census(img: torch.Tensor) -> torch.Tensor:
+    """(H, W) int32 5x5 census codes of an (H, W) uint8 image in one
+    pass: the op ``ogpc::fused_census``, the kernel of
+    ``csrc/fused_census.cu`` for a CUDA tensor, ``ops.census.census5x5``
+    (its plain twin) for a CPU one."""
+    require_u8(img)
+    if img.dim() != 2:
+        raise ValueError(f"expected an (H, W) image, got {tuple(img.shape)}")
+    _require_kernel("fused_census", img)
+    return library.fused_census(img)
 
 
 fused_census.launches = 0

@@ -1,13 +1,15 @@
 """Per-row bitonic sort with a payload: the port of
 ``opengpc_tpu.ops.sort.bitonic_sort_rows``.
 
-``bitonic_sort_rows`` launches the kernel of ``csrc/bitonic_sort.cu`` on a
-CUDA tensor and raises on any failure; on a CPU tensor it runs
-``bitonic_sort_rows_plain``.  Both run the Pallas kernel's network stage for
-stage (``bitonic_network``): lane i meets lane i ^ j, the pair sorts
-ascending when ``(i & size) == 0``, keys alone decide and equal keys never
-swap.  The network is fixed, so the kernel, the plain version and the JAX
-package's kernel give bit-identical keys AND payloads.
+``bitonic_sort_rows`` calls the custom op ``ogpc::bitonic_sort_rows``
+(``ops.library``), which launches the kernel of ``csrc/bitonic_sort.cu``
+on a CUDA tensor and raises on any failure, and runs
+``bitonic_sort_rows_plain`` on a CPU tensor.  Both run the Pallas
+kernel's network stage for stage (``bitonic_network``): lane i meets lane
+i ^ j, the pair sorts ascending when ``(i & size) == 0``, keys alone
+decide and equal keys never swap.  The network is fixed, so the kernel,
+the plain version and the JAX package's kernel give bit-identical keys
+AND payloads.
 ``bitonic_sort_rows.launches`` counts kernel launches.
 """
 
@@ -20,8 +22,13 @@ MIN_N, MAX_N = 256, 16384  # the kernel holds one row in shared memory
 
 def padded_row_length(w: int) -> int:
     """N2 = max(256, pow2 >= 2W): the row length a (2W)-key matcher row is
-    padded to for the bitonic network."""
-    return max(MIN_N, 1 << (2 * w - 1).bit_length())
+    padded to for the bitonic network.  A loop of compares, so that a
+    symbolic W (the fused match op's fake under ``torch.export``)
+    traces."""
+    n = MIN_N
+    while n < 2 * w:
+        n *= 2
+    return n
 
 
 def _check(key: torch.Tensor, payload: torch.Tensor) -> None:
@@ -70,16 +77,9 @@ def bitonic_sort_rows_plain(key: torch.Tensor, payload: torch.Tensor):
     return key, payload
 
 
-def bitonic_sort_rows(key: torch.Tensor, payload: torch.Tensor):
-    """Sort each row of the (R, N) int32 ``key`` ascending by key alone
-    (equal keys in the network's fixed order), permuting ``payload``
-    alongside.  N is a power of two in [256, 16384]."""
-    _check(key, payload)
-    if key.device.type == "cpu":
-        return bitonic_sort_rows_plain(key, payload)
-    if not key.is_cuda:
-        raise ValueError(f"bitonic_sort_rows: no kernel for {key.device} "
-                         "tensors")
+def _launch(key: torch.Tensor, payload: torch.Tensor):
+    """One launch of the sort kernel on (R, N) int32 CUDA rows: the CUDA
+    implementation of ``ogpc::bitonic_sort_rows`` (``ops.library``)."""
     from opengpc_tpu_torch.ops._build import check_launch, load_library
 
     key, payload = _vector_ready(key), _vector_ready(payload)
@@ -93,6 +93,21 @@ def bitonic_sort_rows(key: torch.Tensor, payload: torch.Tensor):
     check_launch("bitonic_sort_rows", rc)
     bitonic_sort_rows.launches += 1
     return key_s, pay_s
+
+
+def bitonic_sort_rows(key: torch.Tensor, payload: torch.Tensor):
+    """Sort each row of the (R, N) int32 ``key`` ascending by key alone
+    (equal keys in the network's fixed order), permuting ``payload``
+    alongside.  N is a power of two in [256, 16384].  The op
+    ``ogpc::bitonic_sort_rows``: the kernel on CUDA tensors, the plain
+    version on CPU ones."""
+    from opengpc_tpu_torch.ops import library
+
+    _check(key, payload)
+    if key.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"bitonic_sort_rows: no kernel for {key.device} "
+                         "tensors")
+    return library.bitonic_sort_rows(key, payload)
 
 
 bitonic_sort_rows.launches = 0

@@ -41,6 +41,10 @@ sees outside the frame.  Unlike the single-device modules, the sharded
 path sorts the 13 margin rows too (no interior-row slicing): they hold only
 sentinels and land in the edge shards.
 
+The collectives are torch's functional ones
+(``torch.distributed._functional_collectives``: the halos one
+``all_to_all_single`` to the two neighbours, ``groups.exchange_halos``),
+so ``torch.export`` keeps them in a program (``opengpc_tpu_torch.aot``).
 ``group=None`` is one process: zero halos and no collective.  The stages
 (slab keys, the epipolar tail, the global send buffers, the global detect
 on a received bucket) are functions that the modules glue with
@@ -54,6 +58,7 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 
 from opengpc_tpu_torch.config import InferenceSettings
 from opengpc_tpu_torch.infer import (_as_mask, _global_rows_ok,
@@ -68,7 +73,7 @@ from opengpc_tpu_torch.match import (SENTINEL_BASE, _global_rows_core,
 from opengpc_tpu_torch.ops.fused import PAD
 from opengpc_tpu_torch.ops.preprocess import require_u8
 from opengpc_tpu_torch.parallel.groups import (Grid, _leaves, _Parallel,
-                                               _split_rows, any_rank,
+                                               _split_rows, any_rank, done,
                                                exchange_halos,
                                                neighbour_halos, split_batch,
                                                split_frame)
@@ -264,8 +269,8 @@ class ShardedFrameSparsematch(_RowSharded):
             send, ovf = _global_send(self, key, rank, n, n * sh)
             recv = send
             if self.group is not None:
-                recv = torch.empty_like(send)
-                dist.all_to_all_single(recv, send, group=self.group)
+                recv = done(funcol.all_to_all_single(send, None, None,
+                                                     self.group))
             out = _global_detect(self, recv, w, n * sh, sh)
             return out + (any_rank(ovf, self.group),)
         out = _epipolar_tail(self, key)

@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 
 from opengpc_tpu_torch.infer import _Matcher
 from opengpc_tpu_torch.ops.fused import PAD
@@ -145,23 +146,43 @@ def split_batch(frames: torch.Tensor, n: int):
     return list(torch.split(frames, frames.shape[0] // n))
 
 
+# the gather along dim 0: all_gather_single where torch has it (it
+# replaces the deprecated all_gather_tensor), else all_gather_tensor
+_all_gather = (getattr(funcol, "all_gather_single", None)
+               or funcol.all_gather_tensor)
+
+
+def done(t):
+    """A functional collective's result, waited for: eager calls return an
+    ``AsyncCollectiveTensor``, traced ones (``torch.export``) a tensor
+    whose wait is already in the graph."""
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
 def exchange_halos(x, group, rank: int, n: int):
     """(top, bottom) PAD-row halos of the (..., sh, W) rows ``x`` that
     rank ``rank`` of an ``n``-rank row group holds: the last rows of the
     rank above and the first of the rank below, zeros at the frame's
-    edges, all leading slabs in one exchange."""
+    edges, all leading slabs in one exchange.  The exchange is one
+    functional ``all_to_all_single`` whose split sizes are nonzero only
+    for ranks ``rank - 1`` and ``rank + 1``, so that ``torch.export``
+    keeps it in a program."""
     top = torch.zeros_like(x[..., :PAD, :])
     bottom = torch.zeros_like(top)
-    ops = []
-    for nb, send, recv in ((rank - 1, x[..., :PAD, :], top),
-                           (rank + 1, x[..., -PAD:, :], bottom)):
-        if 0 <= nb < n:
-            peer = dist.get_global_rank(group, nb)
-            ops += [dist.P2POp(dist.isend, send.contiguous(), peer, group),
-                    dist.P2POp(dist.irecv, recv, peer, group)]
-    if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+    nbrs = [nb for nb in (rank - 1, rank + 1) if 0 <= nb < n]
+    if not nbrs:
+        return top, bottom
+    size = top.numel()
+    splits = [size if i in nbrs else 0 for i in range(n)]
+    send = torch.cat([(x[..., :PAD, :] if nb < rank else x[..., -PAD:, :])
+                      .reshape(-1) for nb in nbrs])
+    recv = done(funcol.all_to_all_single(send, splits, splits, group))
+    # received in source rank order: the rank above's last rows first
+    parts = iter(torch.split(recv, size))
+    if rank > 0:
+        top = next(parts).view(top.shape)
+    if rank < n - 1:
+        bottom = next(parts).view(bottom.shape)
     return top, bottom
 
 
@@ -177,8 +198,8 @@ def any_rank(flag, group):
     """An overflow flag set on any rank of ``group``, on every rank."""
     if group is None:
         return flag
-    t = flag.to(torch.int32).reshape(1)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    t = done(funcol.all_reduce(flag.to(torch.int32).reshape(1), "max",
+                               group))
     return t[0] > 0
 
 
@@ -202,9 +223,9 @@ def _rebuild(like, leaves):
 
 def all_gather_outputs(out, group):
     """Every rank's ``out`` (a nested tuple of tensors of the same shapes
-    on every rank) on every rank, in rank order: one
-    ``all_gather_into_tensor`` a leaf into one flat buffer, each rank's
-    part a view of it.  Bool leaves travel as uint8, which every backend
+    on every rank) on every rank, in rank order: one functional
+    all-gather a leaf into one flat buffer, each rank's part a
+    view of it.  Bool leaves travel as uint8, which every backend
     carries."""
     if group is None:
         return [out]
@@ -213,8 +234,7 @@ def all_gather_outputs(out, group):
     for leaf in _leaves(out):
         t = leaf.reshape(-1)
         t = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
-        flat = t.new_empty((n * t.numel(),))
-        dist.all_gather_into_tensor(flat, t, group=group)
+        flat = done(_all_gather(t, 0, group))
         gathered.append(flat.to(leaf.dtype).view((n,) + leaf.shape))
     return [_rebuild(out, [g[i] for g in gathered]) for i in range(n)]
 

@@ -22,6 +22,7 @@ Requires ``H % (n * 2^(L-1)) == 0`` and the coarsest slab >= PAD rows;
 from __future__ import annotations
 
 import torch
+import torch.distributed._functional_collectives as funcol
 
 from opengpc_tpu_torch.config import InferenceSettings
 from opengpc_tpu_torch.infer import _as_mask, _rows_ok
@@ -29,7 +30,7 @@ from opengpc_tpu_torch.match import match_epipolar_rows
 from opengpc_tpu_torch.ops.fused import PAD
 from opengpc_tpu_torch.parallel.frame import (_check_batch, _grid_1d,
                                               _RowSharded, _slab_keys)
-from opengpc_tpu_torch.parallel.groups import (Grid, _split_rows,
+from opengpc_tpu_torch.parallel.groups import (Grid, _split_rows, done,
                                                neighbour_halos, split_batch,
                                                split_frame)
 from opengpc_tpu_torch.pyramid import (_SENT, _dedup_unpack, _level_keys,
@@ -117,7 +118,7 @@ class _ShardedPyramid(_RowSharded):
         out = self._dedup(keys, w0)
         counts = out[4]
         if self.rows_group is not None:
-            torch.distributed.all_reduce(counts, group=self.rows_group)
+            counts = done(funcol.all_reduce(counts, "sum", self.rows_group))
         return out[:4] + (counts,)
 
     def _frame_group(self, lb, rb, n_rows: int):

@@ -16,6 +16,8 @@ import opengpc_tpu.infer as jinfer
 from opengpc_tpu.io.raw import write_raw
 
 import opengpc_tpu_torch as pt
+import opengpc_tpu_torch.aot as taot
+import opengpc_tpu_torch.cli.aot as taot_cli
 import opengpc_tpu_torch.cli.sparsematch as tsparsematch_cli
 import opengpc_tpu_torch.densify as tdensify
 import opengpc_tpu_torch.infer as tinfer
@@ -315,14 +317,23 @@ def test_cuda_request_never_runs_on_cpu():
     tpyramid.build_pyramid_sparsematch_compact,
     pt.train_forest, pt.train_fern, tmine.extract_triplets_device,
     tdensify.densify_supports, tdensify.densify_from_masked,
-    tsparsematch_cli.main,
-], ids=lambda fn: fn.__name__)
+    tsparsematch_cli.main, taot.export_sparsematch,
+    taot.export_sharded_frame, taot.export_batched_sharded_frame,
+    taot.save_artifact, taot_cli.main,
+], ids=lambda fn: "aot_main" if fn is taot_cli.main else fn.__name__)
 def test_entry_points_default_to_the_card(fn):
     """Every builder, the modules' base, the one-call entry points, the
     trainers, the device extractor, densify and the sparsematch CLI's
-    ``--device`` run on the card unless the caller asks for the CPU."""
+    ``--device``, the AOT exports (and the device an artifact's header
+    records) and ``cli.aot export --device`` run on the card unless the
+    caller asks for the CPU."""
     if fn is tsparsematch_cli.main:
         args = tsparsematch_cli._parser().parse_args(["f.txt", "l", "r"])
+        assert args.device == "cuda"
+        return
+    if fn is taot_cli.main:
+        args = taot_cli._parser().parse_args(
+            ["export", "f.txt", "a.ogpcx", "--height", "8", "--width", "8"])
         assert args.device == "cuda"
         return
     assert inspect.signature(fn).parameters["device"].default == "cuda"

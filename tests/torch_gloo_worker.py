@@ -1,6 +1,6 @@
 """One rank of a gloo process group for tests/test_torch_parallel.py.
 
-    python tests/torch_gloo_worker.py STORE WORLD RANK DATA.npz OUT.npz
+    python tests/torch_gloo_worker.py STORE WORLD RANK DATA.npz OUT.npz [aot]
 
 Joins the group through the file store STORE and, on the inputs in
 DATA.npz, runs every multi-device builder of the port over the group:
@@ -17,6 +17,17 @@ DATA.npz, runs every multi-device builder of the port over the group:
   fern at a time) and ``sharded_train_fern``: the forest texts,
   ``train/<kind>/<batched>`` and ``fern``;
 * ``sharded_sparsematch_step`` on the group (``step``).
+
+With ``aot`` (for tests/test_torch_aot.py) it runs the sharded AOT
+exports instead: the row-sharded frame (masked, global-compact, a 2-level
+pyramid) and the 2-D frame and pyramid on every grid the world makes, each
+exported by every rank and loaded again over groups made afresh (other
+group names than the export's), named ``aot/<contract>/<i>`` and
+``aot2d/<n_data>x<n_rows>/<contract>/<i>``; a world-1 artifact served on
+the first rank of the world (``first/<i>``, ``first_served``); and the
+masked artifact saved by rank 0 and loaded by every rank through the
+container (``container``, the decoded supports).  Rank 0 also writes the
+masked blob (``blob``).
 
 Writes them to OUT.npz.  Imports torch and the port only.
 """
@@ -53,7 +64,53 @@ def settings(global_mode=False):
                              epipolar_mode=not global_mode)
 
 
-def main(store, world, rank, data, out):
+def aot_jobs(world, rank, d, mask, keep, blocks, out):
+    """The sharded AOT exports over the world: see the module docstring."""
+    from opengpc_tpu_torch import aot
+
+    left, right = d["left"], d["right"]
+    serve = dist.new_group(list(range(world)))  # named unlike the world
+    for contract, frame, levels in (
+            ("masked", (left, right), 3),
+            ("global-compact", (left, right), 3),
+            ("pyramid", (d["pleft"], d["pright"]), 2)):
+        blob = aot.export_sharded_frame(
+            mask, settings(contract == "global-compact"), frame[0].shape,
+            dist.group.WORLD, contract, device="cpu", num_levels=levels)
+        keep(f"aot/{contract}", aot.load_sharded_frame(blob, serve)(*frame))
+        if contract == "masked":
+            masked = blob
+    lefts, rights = d["lefts"], d["rights"]
+    for grid in GRIDS[world]:
+        g = par.make_mesh_2d(*grid)
+        for contract in ("masked", "pyramid"):
+            blob = aot.export_batched_sharded_frame(
+                mask, settings(), lefts.shape[0], lefts.shape[1:], g,
+                contract, device="cpu", num_levels=2)
+            keep(f"aot2d/{grid[0]}x{grid[1]}/{contract}",
+                 aot.load_batched_sharded_frame(blob, grid)(lefts, rights))
+    first = dist.new_group([0])
+    blob = [aot.export_sharded_frame(mask, settings(), left.shape, first,
+                                     device="cpu") if rank == 0 else None]
+    dist.broadcast_object_list(blob, 0)
+    call = aot.load_sharded_frame(blob[0])
+    blocks["first_served"] = np.array(call is not None)
+    if call is not None:
+        keep("first", call(left, right))
+    path = out + ".ogpcx"
+    if rank == 0:
+        blocks["blob"] = np.frombuffer(masked, np.uint8)
+        aot.save_artifact(path, masked, contract="masked",
+                          settings=settings(), shape=left.shape,
+                          device="cpu", extra={"n_devices": world})
+    dist.barrier()
+    path = [path]
+    dist.broadcast_object_list(path, 0)
+    call, meta = aot.load_artifact(path[0])
+    blocks["container"] = aot.decode_outputs(meta, call(left, right))
+
+
+def main(store, world, rank, data, out, mode=""):
     torch.set_num_threads(1)
     size = par.init_distributed("gloo", init_method=f"file://{store}",
                                 world_size=world, rank=rank)
@@ -68,6 +125,11 @@ def main(store, world, rank, data, out):
         for i, leaf in enumerate(leaves(result)):
             blocks[f"{name}/{i}"] = leaf.numpy()
 
+    if mode == "aot":
+        aot_jobs(world, rank, d, mask, keep, blocks, out)
+        np.savez(out, **blocks)
+        dist.destroy_process_group()
+        return
     for contract in par.CONTRACTS:
         mod = par.build_sharded_frame_sparsematch(
             mask, settings(contract == "global-compact"), group=group,
@@ -117,5 +179,5 @@ def main(store, world, rank, data, out):
 
 
 if __name__ == "__main__":
-    store, world, rank, data, out = sys.argv[1:]
-    main(store, int(world), int(rank), data, out)
+    store, world, rank, data, out = sys.argv[1:6]
+    main(store, int(world), int(rank), data, out, *sys.argv[6:])
