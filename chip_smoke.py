@@ -27,7 +27,12 @@ numpy one, forest training on the card at ~10^6 triplets (fern at a time
 equal to batched, the card's forest equal to the CPU's on a subset, each
 forest held to the pretrained one on a held-out scene), and the
 ``extract`` and ``train`` CLIs on a Sintel-layout tree
-whose fresh forest then matches through the key kernel.  Then the
+whose fresh forest then matches through the key kernel, with
+``data/validate_real_sintel_torch.py`` run on the same tree.  Random
+forests (``utils.random_forest``) on random shapes and settings go through
+every level-1 route of the one-call, each equal to the oracle and the CPU,
+and ``examples/demo_torch.py`` and ``examples/evaluate_torch.py`` run on
+the card against their ``--device cpu`` runs.  Then the
 ``sparsematch`` CLI on PNG pairs (every contract, the pyramid, densify,
 both colormaps and the host matchers, each against ``--device cpu``'s
 files, the one-call and the oracle), its sequence mode over 32 pairs whose
@@ -1038,6 +1043,180 @@ def phase_descriptors(paths, masks, launches):
     emit("descriptors", checks=report, failures=failures)
     if failures:
         raise SystemExit(f"descriptors failed: {failures}")
+
+
+FUZZ_SEED, FUZZ_DRAWS = 606, 24
+FUZZ_CLASSES = ("masked", "global-rows", "flat", "over-30", "over-32", "zero",
+                "tau")
+
+
+def fuzz_draw(rng, forest, epipolar=None):
+    """One fuzz draw after its forest, in ``experiments/exp_tpu_fuzz.py``'s
+    ranges: h 48-400, w 64-1400, threshold 1-29, disp_high 16, 64 or 128,
+    vertical tolerance 0-2, either mode (unless forced); a ``make_scene``
+    pair.  Capacity H*W: the flat route never truncates."""
+    from opengpc_tpu_torch import InferenceSettings
+    from opengpc_tpu_torch.utils import make_scene
+
+    h, w = int(rng.integers(48, 400)), int(rng.integers(64, 1400))
+    drawn = bool(rng.integers(0, 2))
+    settings = InferenceSettings(
+        gradient_threshold=int(rng.integers(1, 30)),
+        disp_high=int(rng.choice([16, 64, 128])),
+        vertical_tolerance=int(rng.integers(0, 3)),
+        epipolar_mode=drawn if epipolar is None else epipolar,
+        capacity=h * w)
+    left, right, _, _ = make_scene(rng, h, w)
+    return forest, settings, left, right
+
+
+def fuzz_classes(draw):
+    """The classes a draw covers: its one-call route, its forest type, and
+    a test count past 30 (the flat matcher) and past 32 (the file-order
+    cap)."""
+    from opengpc_tpu_torch import make_filter_mask
+    from opengpc_tpu_torch.infer import route
+
+    forest, settings, left, _ = draw
+    out = {route(make_filter_mask(forest), left.shape, settings),
+           "zero" if forest.is_zero else "tau"}
+    out |= {c for c, n in (("over-30", 30), ("over-32", 32))
+            if forest.num_tests > n}
+    return out
+
+
+def fuzz_draws():
+    """FUZZ_DRAWS random forests from ``utils.fuzz.random_forest`` with
+    their shapes, settings and scenes, then one forced draw for each class
+    of FUZZ_CLASSES none of them took, from the same generator: a forest
+    past 32 tests (random forests joined until past 32) for the flat route
+    and both counts, the first two ferns of a forest in the mode a route
+    needs, all taus zero or drawn in [1, 10) for a forest type."""
+    import dataclasses
+
+    from opengpc_tpu_torch.forest import Fern, Forest
+    from opengpc_tpu_torch.utils import random_forest
+
+    rng = np.random.default_rng(FUZZ_SEED)
+    draws = [fuzz_draw(rng, random_forest(rng)) for _ in range(FUZZ_DRAWS)]
+    seen = set().union(*map(fuzz_classes, draws))
+    for cls in FUZZ_CLASSES:
+        if cls in seen:
+            continue
+        ferns = random_forest(rng).ferns
+        while cls in ("flat", "over-30", "over-32") and \
+                sum(len(f.tests) for f in ferns) <= 32:
+            ferns += random_forest(rng).ferns
+        if cls in ("zero", "tau"):
+            ferns = tuple(Fern(f.scale, tuple(
+                dataclasses.replace(t, tau=0 if cls == "zero"
+                                    else int(rng.integers(1, 10)))
+                for t in f.tests)) for f in ferns)
+        if cls in ("masked", "global-rows"):
+            ferns = ferns[:2]  # at most 24 tests
+        epipolar = {"masked": True, "global-rows": False}.get(cls)
+        draws.append(fuzz_draw(rng, Forest(ferns), epipolar))
+        seen |= fuzz_classes(draws[-1])
+    return draws, seen
+
+
+def phase_fuzz(td, oracle, launches):
+    """Random forests through every route of the one-call sparsematch on
+    the card (the card's counterpart of ``experiments/exp_tpu_fuzz.py`` and
+    ``tests/test_parity.py``'s random-forest fuzz).  Each draw's forest is
+    written to a file and driven as one path with the launch counters at 0
+    (one key-kernel launch on the masked and global-rows routes and where
+    the flat route packs keys, else one code-kernel launch); its support
+    set must equal the native oracle's and ``device="cpu"``'s exactly, and
+    the masked builder's where the draw is eligible.  The draw's filter
+    mask then goes through the key or code kernel at the draw's shape
+    against its twin, bit for bit.  Returns the largest kernel-vs-twin
+    difference by kernel."""
+    from collections import Counter
+
+    from opengpc_tpu_torch import (build_sparsematch_masked, make_filter_mask,
+                                   masked_supports_to_numpy, save_forest,
+                                   sparsematch)
+    from opengpc_tpu_torch.infer import _packed_ok, _rows_ok, route
+    from opengpc_tpu_torch.match import SENTINEL_BASE
+    from opengpc_tpu_torch.ops.fused import (fused_codes_pair,
+                                             fused_codes_plain,
+                                             fused_key_image, fused_keys_plain)
+
+    t0 = time.perf_counter()
+    draws, covered = fuzz_draws()
+    failures, routes, by_kernel = [], Counter(), Counter()
+    errs = {"fused_keys": 0, "fused_codes": 0}
+    supports, tests = 0, []
+    for i, (forest, settings, left, right) in enumerate(draws):
+        path = os.path.join(td, f"fuzz{i}.txt")
+        save_forest(forest, path)
+        mask = make_filter_mask(forest)
+        shape = left.shape
+        r = route(mask, shape, settings)
+        keys = r != "flat" or (settings.epipolar_mode
+                               and _packed_ok(mask, shape))
+        kernel = "fused_keys" if keys else "fused_codes"
+        sup, counts = launches.run(
+            f"fuzz/{i}", lambda: sparsematch(left, right, path, settings,
+                                             device="cuda"), {kernel: 1})
+        routes[r] += 1
+        by_kernel.update({k: n for k, n in counts.items() if n})
+        tests.append(forest.num_tests)
+        got = support_keys(sup)
+        supports += int(got.size)
+        ctx = (f"draw {i}: {r} {forest.num_tests} tests zero={forest.is_zero} "
+               f"{shape} {settings}")
+        if not np.array_equal(got, oracle_set(oracle, left, right, path,
+                                              settings)):
+            failures.append(f"{ctx}: differs from the oracle")
+        cpu = sparsematch(left, right, path, settings, device="cpu")
+        if not np.array_equal(got, support_keys(cpu)):
+            failures.append(f"{ctx}: differs from device='cpu'")
+        l_d, r_d = (torch.from_numpy(a).cuda() for a in (left, right))
+        if settings.epipolar_mode and _rows_ok(mask, shape, settings):
+            out, counts = launches.run(
+                f"fuzz/{i}/masked", lambda: build_sparsematch_masked(
+                    forest, settings, device="cuda")(l_d, r_d),
+                {"fused_keys": 1})
+            by_kernel.update({k: n for k, n in counts.items() if n})
+            if not np.array_equal(got, support_keys(masked_supports_to_numpy(
+                    *out, settings.disp_high))):
+                failures.append(f"{ctx}: the masked builder differs")
+        thr = settings.gradient_threshold
+        if keys:
+            kernel_out = fused_key_image(l_d[None], r_d[None], mask, thr,
+                                         SENTINEL_BASE)
+            twin = torch.cat([fused_keys_plain(l_d[None], mask, thr, 0,
+                                               SENTINEL_BASE),
+                              fused_keys_plain(r_d[None], mask, thr,
+                                               shape[1], SENTINEL_BASE)],
+                             dim=2)
+            err = max_err(kernel_out, twin)
+        else:
+            got_c = fused_codes_pair(l_d, r_d, mask, thr)
+            want_c = [fused_codes_plain(x, mask, thr) for x in (l_d, r_d)]
+            err = max(max_err(g, w_) for gs, ws in zip(got_c, want_c)
+                      for g, w_ in zip(gs, ws))
+        errs[kernel] = max(errs[kernel], err)
+        if err:
+            failures.append(f"{ctx}: {kernel} differs from its twin by {err}")
+    torch.cuda.synchronize()
+    missing = sorted(set(FUZZ_CLASSES) - covered)
+    if missing:
+        failures.append(f"classes not covered: {missing}")
+    for k in ("fused_keys", "fused_codes"):
+        if not by_kernel[k]:
+            failures.append(f"no draw launched {k}")
+    emit("fuzz", seed=FUZZ_SEED, draws=len(draws),
+         forced=len(draws) - FUZZ_DRAWS, routes=dict(routes),
+         tests_range=[min(tests), max(tests)],
+         zero_forests=sum(d[0].is_zero for d in draws),
+         launches=dict(by_kernel), supports=supports, max_abs_err=errs,
+         seconds=time.perf_counter() - t0, failures=failures[:10])
+    if failures:
+        raise SystemExit(f"fuzz failed: {failures[:10]}")
+    return errs
 
 
 def kernel_vs_plain_times(kernel, plain, k_iters, p_iters, library=None):
@@ -2155,10 +2334,16 @@ def phase_train(smi, paths):
 
 
 def write_sintel_tree(root, rng, scenes=("alley_1", "market_5"), frames=2):
-    """A Sintel stereo training tree of ``make_scene(H, W)`` frames: 8-bit
-    clean frames, disparity PNGs (d = 4R + G/64), occlusion maps and empty
-    out-of-frame maps, written with the port's ``write_png``."""
-    from opengpc_tpu_torch.io import write_png
+    """A Sintel training tree of ``make_scene(H, W)`` frames: the stereo
+    layout (8-bit clean frames, disparity PNGs (d = 4R + G/64), occlusion
+    maps and empty out-of-frame maps, written with the port's
+    ``write_png``) and beside it the optical-flow layout, whose clean
+    frames are the left frames, whose ``.flo`` flow is the left frame's
+    disparity as a horizontal shift and whose invalid maps are empty (the
+    flow layout shares the occlusion maps)."""
+    import shutil
+
+    from opengpc_tpu_torch.io import write_flo, write_png
     from opengpc_tpu_torch.utils import make_scene
 
     tr = os.path.join(root, "training")
@@ -2174,6 +2359,16 @@ def write_sintel_tree(root, rng, scenes=("alley_1", "market_5"), frames=2):
                 d = os.path.join(tr, sub, scene)
                 os.makedirs(d, exist_ok=True)
                 write_png(os.path.join(d, f"frame_{i:04d}.png"), img)
+            name = f"frame_{i:04d}"
+            for sub, src in (("clean", "clean_left"),
+                             ("invalid", "outofframe")):
+                d = os.path.join(tr, sub, scene)
+                os.makedirs(d, exist_ok=True)
+                shutil.copy(os.path.join(tr, src, scene, name + ".png"), d)
+            os.makedirs(os.path.join(tr, "flow", scene), exist_ok=True)
+            write_flo(os.path.join(tr, "flow", scene, name + ".flo"),
+                      -disp.astype(np.float32),
+                      np.zeros((H, W), np.float32))
 
 
 def phase_workflow(td, oracle, paths, launches):
@@ -2184,7 +2379,9 @@ def phase_workflow(td, oracle, paths, launches):
     tree's first pair with the fresh forest at the CLI's settings (the
     masked route: one key-kernel launch), equal to the CPU pipeline and
     through the oracle gate, and the fresh forest held to the quality bar
-    on a held-out scene."""
+    on a held-out scene.  Beside them, ``data/validate_real_sintel_torch.py``
+    runs its battery on the tree's flow and stereo layouts on the card: it
+    must exit 0 with every hard check passed."""
     from opengpc_tpu_torch import InferenceSettings, load_forest, sparsematch
     from opengpc_tpu_torch.cli.train import main as train_main
     from opengpc_tpu_torch.io import load_triplets, read_gray
@@ -2193,6 +2390,15 @@ def phase_workflow(td, oracle, paths, launches):
     t0 = time.perf_counter()
     write_sintel_tree(root, np.random.default_rng(31))
     tree_s = time.perf_counter() - t0
+    # the real-Sintel battery through the port on the card, on this tree,
+    # beside the rest of the phase (its mining runs on the host)
+    import concurrent.futures
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    battery = pool.submit(run_script, [
+        os.path.join("data", "validate_real_sintel_torch.py"),
+        "--flow-root", root, "--stereo-root", root])
+    pool.shutdown(wait=False)
     trips = os.path.join(td, "triplets.bin")
     os.makedirs(os.path.join(td, "workflow_forest"))
     forest = os.path.join(td, "workflow_forest", "fresh.txt")
@@ -2228,14 +2434,110 @@ def phase_workflow(td, oracle, paths, launches):
                   card_forest_equals_cpu=same_forest,
                   supports_equal_cpu=bool(np.array_equal(sup, cpu)),
                   oracle_gate=gate, quality=quality, meets_quality_bar=good)
+    b_rc, b_out, b_err, battery_s = battery.result()
+    report["sintel_battery"] = dict(
+        rc=b_rc, passed="all hard checks passed" in b_out,
+        checks=[ln for ln in b_out.splitlines()
+                if ln.startswith("[") or "precision vs GT" in ln])
     ok = (rc == rc_cpu == 0 and same_forest and report["supports_equal_cpu"]
-          and ok_gate and good and len(sup) > 0)
+          and ok_gate and good and len(sup) > 0 and b_rc == 0
+          and report["sintel_battery"]["passed"])
     emit("workflow", launches=counts, tree_s=tree_s, extract_s=extract_s,
-         train_s=train_s, extract_tail=proc.stdout.splitlines()[-1:],
+         train_s=train_s, battery_s=battery_s,
+         extract_tail=proc.stdout.splitlines()[-1:],
          train_tail=log.getvalue().splitlines()[-1:],
          checks=report)
+    if b_rc != 0:
+        print(b_out[-4000:], b_err[-4000:], file=sys.stderr)
     if not ok:
         raise SystemExit(f"workflow failed: {report}")
+
+
+def run_script(argv, timeout=300, threads=None):
+    """A repo script in a fresh process from the checkout's root, with
+    ``threads`` intra-op threads if given: (exit code, stdout, stderr,
+    seconds)."""
+    env = dict(os.environ)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    return (proc.returncode, proc.stdout, proc.stderr,
+            time.perf_counter() - t0)
+
+
+def start_examples(td):
+    """Start the examples phase's untimed runs (the demo on the card and on
+    the CPU, the evaluation on the CPU) side by side in the background,
+    each with a share of the host's cores (three processes at torch's
+    default of one intra-op thread a core ran 5-7x slower): name -> future
+    of ``run_script``'s result.  The caller drives only correctness phases
+    until it has every result, so no timing window shares the host with
+    them."""
+    import concurrent.futures
+
+    demo = os.path.join("examples", "demo_torch.py")
+    runs = {f"demo/{dev}": [demo, os.path.join(td, f"demo_{dev}"),
+                            "--device", dev] for dev in ("cuda", "cpu")}
+    runs["evaluate/cpu"] = [os.path.join("examples", "evaluate_torch.py"),
+                            "--device", "cpu"]
+    threads = max(1, (os.cpu_count() or 3) // len(runs))
+    pool = concurrent.futures.ThreadPoolExecutor(len(runs))
+    futures = {name: pool.submit(run_script, argv, threads=threads)
+               for name, argv in runs.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def phase_examples(td, done):
+    """``examples/demo_torch.py`` (320x640, 3000 triplets) and
+    ``examples/evaluate_torch.py`` (436x1024) in fresh processes on the
+    card and with ``--device cpu`` (``done``: the results of
+    ``start_examples``' runs): every run exits 0, the demo's support,
+    precision and per-contract lines and files equal the CPU run's, and
+    the evaluation table's supports, density and precision columns equal
+    the CPU table's.  The card's evaluation runs here, alone, with
+    ``--device-time``: the masked module's ms a pair by CUDA events, the
+    median of its repeats."""
+    outs = {dev: os.path.join(td, f"demo_{dev}") for dev in ("cuda", "cpu")}
+    done = dict(done)
+    done["evaluate/cuda"] = run_script(
+        [os.path.join("examples", "evaluate_torch.py"), "--device-time"])
+    failures = [f"{name}: exit {rc}\n{out[-2000:]}{err[-2000:]}"
+                for name, (rc, out, err, _) in done.items() if rc != 0]
+    if failures:
+        raise SystemExit(f"examples failed: {failures}")
+
+    def demo_lines(out):  # everything but the training time and the dir
+        return [ln for ln in out.splitlines()
+                if "trained fresh forest in" not in ln
+                and not ln.startswith("outputs in")]
+
+    def table(out, cols=6):  # the rows' quality columns
+        return [ln.split("|")[1:cols + 1] for ln in out.splitlines()
+                if ln.startswith("| ") and ln[2].isdigit()]
+
+    demo_same = (demo_lines(done["demo/cuda"][1])
+                 == demo_lines(done["demo/cpu"][1]))
+    files = sorted(os.listdir(outs["cuda"]))
+    files_same = files == sorted(os.listdir(outs["cpu"])) and all(
+        open(os.path.join(outs["cuda"], f), "rb").read()
+        == open(os.path.join(outs["cpu"], f), "rb").read() for f in files)
+    card_table = table(done["evaluate/cuda"][1], cols=8)
+    table_same = ([r[:6] for r in card_table]
+                  == table(done["evaluate/cpu"][1]) and len(card_table) == 5)
+    ms_pair = {r[0].strip(): float(r[6]) for r in card_table}
+    emit("examples", seconds={k: v[3] for k, v in done.items()},
+         demo_lines=demo_lines(done["demo/cuda"][1]),
+         demo_equals_cpu=demo_same, demo_files_equal_cpu=files_same,
+         demo_train_line=[ln for ln in done["demo/cuda"][1].splitlines()
+                          if "trained fresh forest" in ln],
+         evaluate_table=done["evaluate/cuda"][1].splitlines(),
+         evaluate_equals_cpu=table_same, ms_per_pair=ms_pair,
+         card=smi_line())
+    if not (demo_same and files_same and table_same):
+        raise SystemExit("examples differ from their --device cpu runs")
 
 
 CLI = "opengpc_tpu_torch.cli.sparsematch"
@@ -3398,8 +3700,12 @@ def main():
         phase_routes(oracle, paths, launches)
         phase_variants(oracle, paths, masks, launches)
         phase_descriptors(paths, masks, launches)
+        for name, err in phase_fuzz(td, oracle, launches).items():
+            errs[name] = max(errs[name], err)
+        examples = start_examples(td)
         phase_sharded_frame(oracle, paths, launches)
         phase_census(launches)
+        examples = {name: f.result() for name, f in examples.items()}
         phase_png_paths(td, paths, launches)
         phase_native_decode(smi, paths)
         phase_pyramid(oracle, paths, launches)
@@ -3408,6 +3714,7 @@ def main():
         phase_mine_device()
         train_ref = phase_train(smi, paths)
         phase_workflow(td, oracle, paths, launches)
+        phase_examples(td, examples)
         times = {"fused_keys": phase_times(smi)}
         phase_key_times(smi, masks)
         times.update(phase_new_times(smi, masks))

@@ -65,7 +65,9 @@ from opengpc_tpu_torch.ops.fused import (fused_codes, fused_codes_pair,
                                          fused_key_image,
                                          fused_key_image_slab, mask_tests)
 from opengpc_tpu_torch.ops.fused_match import fused_sparsematch_rows
-from opengpc_tpu_torch.ops.preprocess import CANDIDATE_MARGIN, require_u8
+from opengpc_tpu_torch.ops.preprocess import (CANDIDATE_MARGIN, box3,
+                                              candidate_mask, require_u8,
+                                              sobel3)
 
 _MARGIN = CANDIDATE_MARGIN
 
@@ -189,8 +191,9 @@ def _sparsematch_masked_impl(left, right, mask: FilterMask,
     (B, H, 2W) and (B, H) for a batch folded into one row sort."""
     _check_masked(mask, tuple(left.shape[-2:]), settings)
     rows, lead, m = _folded_key_rows(left, right, mask, settings)
-    buf, counts = match_epipolar_masked(rows, settings.disp_high,
-                                        mask.num_tests)
+    buf, counts = match_epipolar_masked(None, None, None, None,
+                                        settings.disp_high, key=rows,
+                                        num_tests=mask.num_tests)
     return (_unfold(buf, lead, m, MASKED_SENTINEL), _unfold(counts, lead, m))
 
 
@@ -583,6 +586,15 @@ def row_supports_to_numpy(xs_rows, ds_rows, row_counts) -> np.ndarray:
     ys = np.broadcast_to(np.arange(xs.shape[0], dtype=np.int32)[:, None],
                          xs.shape)
     return np.stack([xs[sel], ys[sel], ds[sel]], axis=1).astype(np.int32)
+
+
+def preprocess(img, gradient_threshold: int, device="cuda"):
+    """(smooth, candidate_mask) of one uint8 image, an array or tensor, on
+    ``device``: the 3x3 box and the Sobel candidates with their 13-px
+    margin.  Both run on the *raw* image, as in the reference; the codes
+    are taken on the smoothed one."""
+    img = _image_arg(img, torch.device(device))
+    return box3(img), candidate_mask(sobel3(img, gradient_threshold))
 
 
 def extract_descriptors(img, forest_or_mask, settings: InferenceSettings,

@@ -115,15 +115,31 @@ def _masked_emit(keep, src_x, d, w, disp_high):
     return out, counts
 
 
-def match_epipolar_masked(key, disp_high, num_tests):
-    """Masked sorted-order epipolar matcher over an (R, 2W) int32 key image.
+def _key_from_codes(code_src, code_tar, valid_src, valid_tar):
+    """The (H, 2W) sentinel-packed key image of two (H, W) code images:
+    the code where valid, ``SENTINEL_BASE + pos`` elsewhere."""
+    w2 = 2 * code_src.shape[1]
+    pos = torch.arange(w2, dtype=torch.int32, device=code_src.device)
+    return torch.where(torch.cat([valid_src, valid_tar], dim=1),
+                       torch.cat([code_src, code_tar], dim=1),
+                       SENTINEL_BASE + pos)
+
+
+def match_epipolar_masked(code_src, code_tar, valid_src, valid_tar,
+                          disp_high, key=None, num_tests=None):
+    """Masked sorted-order epipolar matcher, from two (H, W) code images
+    and their validity masks or from a prebuilt (R, 2W) int32 key image
+    (``key=``, as ``ops.fused.fused_keys`` emits; the code arguments are
+    then ignored).
 
     Returns (buf (R, 2W) int32, row_counts (R,) int32): window position i
     of row y holds ``(src_x << bd) | (d + disp_high)`` where a support was
     found (bd = bit_length(2*disp_high)) and MASKED_SENTINEL elsewhere.
     Decode with ``infer.masked_supports_to_numpy``.
     """
-    if key.dtype != torch.int32 or key.dim() != 2:
+    if key is None:
+        key = _key_from_codes(code_src, code_tar, valid_src, valid_tar)
+    elif key.dtype != torch.int32 or key.dim() != 2:
         raise ValueError(f"expected an (R, 2W) int32 key image, got "
                          f"{key.dtype} {tuple(key.shape)}")
     w = key.shape[1] // 2
@@ -270,11 +286,7 @@ def _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
         raise ValueError(f"sort_impl must be 'auto' or 'bitonic', got "
                          f"{sort_impl!r}")
     if key is None:
-        h, w = code_src.shape
-        pos = torch.arange(2 * w, dtype=torch.int32, device=code_src.device)
-        key = torch.where(torch.cat([valid_src, valid_tar], dim=1),
-                          torch.cat([code_src, code_tar], dim=1),
-                          SENTINEL_BASE + pos)
+        key = _key_from_codes(code_src, code_tar, valid_src, valid_tar)
     h, w2 = key.shape
     w = w2 // 2
     if sort_impl == "bitonic":

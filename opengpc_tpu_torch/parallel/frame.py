@@ -106,7 +106,8 @@ def _epipolar_tail(mod, key):
     the masked-compact flag is the rank's own."""
     dh, nt = mod.settings.disp_high, mod.mask.num_tests
     if mod.contract == "masked":
-        return match_epipolar_masked(key, dh, nt)
+        return match_epipolar_masked(None, None, None, None, dh, key=key,
+                                     num_tests=nt)
     if mod.contract == "rows":
         return match_epipolar_rows(None, None, None, None, dh, key=key,
                                    num_tests=nt)

@@ -312,7 +312,8 @@ def test_cuda_request_never_runs_on_cpu():
     pt.build_sparsematch_global_rows, pt.build_sparsematch_rows,
     pt.build_sparsematch_masked_compact, pt.build_sparsematch_global_compact,
     tparallel.build_sharded_frame_sparsematch, tinfer._Matcher,
-    pt.sparsematch, pt.extract_descriptors, pt.build_stereomatch,
+    pt.sparsematch, pt.extract_descriptors, tinfer.preprocess,
+    pt.build_stereomatch,
     tpyramid.build_pyramid_sparsematch,
     tpyramid.build_pyramid_sparsematch_compact,
     pt.train_forest, pt.train_fern, tmine.extract_triplets_device,

@@ -51,8 +51,9 @@ def test_masked_matcher_matches_jax(num_tests):
     key = random_key_image(rng, rows, w, num_tests, disp_high)
     jbuf, jcounts = jmatch.match_epipolar_masked(
         None, None, None, None, disp_high, key=key, num_tests=num_tests)
-    buf, counts = tmatch.match_epipolar_masked(torch.from_numpy(key),
-                                               disp_high, num_tests)
+    buf, counts = tmatch.match_epipolar_masked(
+        None, None, None, None, disp_high, key=torch.from_numpy(key),
+        num_tests=num_tests)
     assert buf.dtype == counts.dtype == torch.int32
     np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
@@ -69,8 +70,9 @@ def test_masked_matcher_disp_high_matches_jax(disp_high):
                            num_tests, disp_high)
     jbuf, jcounts = jmatch.match_epipolar_masked(
         None, None, None, None, disp_high, key=key, num_tests=num_tests)
-    buf, counts = tmatch.match_epipolar_masked(torch.from_numpy(key),
-                                               disp_high, num_tests)
+    buf, counts = tmatch.match_epipolar_masked(
+        None, None, None, None, disp_high, key=torch.from_numpy(key),
+        num_tests=num_tests)
     np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
 
@@ -115,5 +117,6 @@ def test_masked_emit_rejects_wide_pack():
 
 def test_matcher_rejects_non_int32_keys():
     with pytest.raises(ValueError, match="int32"):
-        tmatch.match_epipolar_masked(torch.zeros((2, 8), dtype=torch.int64),
-                                     8, 30)
+        tmatch.match_epipolar_masked(
+            None, None, None, None, 8,
+            key=torch.zeros((2, 8), dtype=torch.int64), num_tests=30)
