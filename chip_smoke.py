@@ -32,7 +32,11 @@ whose fresh forest then matches through the key kernel, with
 forests (``utils.random_forest``) on random shapes and settings go through
 every level-1 route of the one-call, each equal to the oracle and the CPU,
 and ``examples/demo_torch.py`` and ``examples/evaluate_torch.py`` run on
-the card against their ``--device cpu`` runs.  Then the
+the card against their ``--device cpu`` runs; ``entry_torch.entry()``'s
+module runs on the card against its CPU module, and ``bench_torch.py``
+runs in smoke mode in a fresh process beside the correctness phases
+(every gate, the output contract, ``bench.py``'s 20 metric names, the key
+kernel in every matcher step).  Then the
 ``sparsematch`` CLI on PNG pairs (every contract, the pyramid, densify,
 both colormaps and the host matchers, each against ``--device cpu``'s
 files, the one-call and the oracle), its sequence mode over 32 pairs whose
@@ -42,12 +46,16 @@ counter at 0 and is read right after, so the run shows which kernels it went thr
 Supports are checked against the native oracle (``cpp/build/oracle``;
 level by level on downscaled images for the pyramid), the CPU pipeline
 or the single-device module and, where the mode allows, the true
-disparity.  Last it times the kernels against their twins (the bitonic
+disparity.  Early in the run (the profiler loses kernel events late in
+a long process, which the ``profiler_late`` phase at the end measures)
+it times the kernels against their twins (the bitonic
 sort also against ``torch.sort`` on the same rows, in turns), each
 beside its bound, the key kernel at B = 1 and 4 on the dense and sparse
 pairs and at 2160x3840, the routes per pair, the sharded module against
 the single-device one and the one-call module at levels 1-3 with CUDA
-events and ``torch.profiler``.  Every phase prints one JSON line; the last line
+events and ``torch.profiler`` (each kernel also as the replays of a CUDA
+graph of many calls, the kernels line's time where no profiler window
+was usable).  Every phase prints one JSON line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits non-zero before doing
 anything.
@@ -66,6 +74,9 @@ import time
 
 import numpy as np
 import torch
+
+from opengpc_tpu_torch.utils.timing import (device_profile, events_ms_per_step,
+                                            graph_ms_per_step)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H, W = 436, 1024          # Sintel resolution, the main path's frame
@@ -307,61 +318,7 @@ def cuda_ms(fn, iters):
     """Mean device ms per call of ``fn`` over ``iters`` calls (events)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_profile(fn, iters, tries=3, warm=True):
-    """torch.profiler over ``iters`` calls of ``fn``: the window's host ms
-    per call, device ms per call summed over kernels, the device busy
-    share, and the kernels by device time (us per call).  Every call
-    launches the same kernels, so a kernel counted a fractional number of
-    times a call means the profiler lost events (``whole`` false).  A lost
-    event or two leave a kernel's count within 10% of a whole number of
-    launches a call; its time a call is then its mean launch's times that
-    number, still the call's (``usable``).  Most events lost, or none
-    recorded, is not usable: the window is taken again, up to ``tries``
-    times.  ``lost_windows`` counts the windows that lost events.  With
-    ``warm`` false the first window is the first call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    if warm:
-        fn()
-        torch.cuda.synchronize()
-    for lost in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / iters
-        kernels, whole, usable = {}, True, True
-        for e in prof.key_averages():
-            us = getattr(e, "self_device_time_total", 0)
-            if e.device_type == DeviceType.CUDA and us > 0:
-                n = e.count / iters
-                r = round(n)
-                whole = whole and e.count % iters == 0
-                usable = usable and r >= 1 and abs(n - r) <= 0.1 * r
-                kernels[e.key] = (us / e.count * r if r else us / iters, n)
-        whole, usable = whole and bool(kernels), usable and bool(kernels)
-        if usable:
-            break
-    device_ms = sum(us for us, _ in kernels.values()) / 1e3
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    return dict(wall_ms=wall_ms, device_ms=device_ms,
-                busy_share=device_ms / wall_ms,
-                launches=sum(n for _, n in kernels.values()),
-                kernels=[[k[:70], us, n] for k, (us, n) in top[:12]],
-                whole=whole, usable=usable, lost_windows=lost + (not whole))
+    return events_ms_per_step(fn, iters)[0]
 
 
 def kernel_profile(fn, iters):
@@ -374,14 +331,20 @@ def kernel_profile(fn, iters):
     return prof
 
 
-def line_times(device, events):
+def graph_ms(fn, steps):
+    """Device ms a call of ``fn`` with no host launch between its kernels:
+    ``steps`` calls in one CUDA graph, the median of 5 replays."""
+    return float(np.median(graph_ms_per_step(fn, steps, 5)))
+
+
+def line_times(device, graph):
     """A kernel's times for the kernels line (``ms``, ``plain_ms`` and,
     where there is one, ``library_ms``), all from one source, named in
     ``ms_source``: the profiler's device ms where every one of them had a
-    usable window, else the CUDA events' ms of all of them, so that no
-    time stands against another source's."""
+    usable window, else the CUDA graph replays' ms of all of them, so that
+    no time stands against another source's."""
     if None in device.values():
-        return dict(events, ms_source="events")
+        return dict(graph, ms_source="cuda-graph")
     return dict(device, ms_source="profiler")
 
 
@@ -673,10 +636,12 @@ def phase_times(smi):
     emit("times", **times)
     # time of the kernel (both images, one launch) and of the twin per pair
     ncand = int((_key_image(l_d, r_d, mask, settings) < SENTINEL_BASE).sum())
+    graph = dict(ms=graph_ms(kernel, 100), plain_ms=graph_ms(plain, 10))
     return with_bound(
         dict(line_times(
             dict(ms=prof_kernel["device_ms"], plain_ms=prof_plain["device_ms"]),
-            dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)), library_ms=None),
+            graph), library_ms=None, events_ms=[k1, k2],
+            plain_events_ms=[p1, p2], graph_ms=graph),
         2 * H * W * (1 + 4), code_ops(2, H, W, ncand, mask.num_tests))
 
 
@@ -1220,10 +1185,11 @@ def phase_fuzz(td, oracle, launches):
 
 
 def kernel_vs_plain_times(kernel, plain, k_iters, p_iters, library=None):
-    """Events ms per call in turns (plain, kernel, kernel, plain) and the
-    profiler's device ms per call of each, on one card; with ``library``
-    (one PyTorch call computing the same function) its events and device
-    ms too, in turns with the kernel (library, kernel, kernel, library)."""
+    """Events ms per call in turns (plain, kernel, kernel, plain), the
+    profiler's device ms per call of each and each one's CUDA graph
+    replays, on one card; with ``library`` (one PyTorch call computing the
+    same function) its events, device and graph ms too, in turns with the
+    kernel (library, kernel, kernel, library)."""
     p1 = cuda_ms(plain, p_iters)
     k1 = cuda_ms(kernel, k_iters)
     k2 = cuda_ms(kernel, k_iters)
@@ -1233,6 +1199,8 @@ def kernel_vs_plain_times(kernel, plain, k_iters, p_iters, library=None):
     out = {}
     device = dict(ms=pk["device_ms"], plain_ms=pp["device_ms"])
     events = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2)
+    graph = dict(ms=graph_ms(kernel, k_iters // 2),
+                 plain_ms=graph_ms(plain, p_iters))
     if library is not None:
         l1 = kernel_profile(library, max(5, k_iters // 10))
         kl = [kernel_profile(kernel, max(5, k_iters // 10))
@@ -1246,10 +1214,11 @@ def kernel_vs_plain_times(kernel, plain, k_iters, p_iters, library=None):
         device["library_ms"] = None if None in lib_dev else float(
             np.mean(lib_dev))
         events["library_ms"] = float(np.mean(lib_events))
+        graph["library_ms"] = graph_ms(library, k_iters // 2)
     return dict(out, events_ms=[k1, k2], plain_events_ms=[p1, p2],
                 device_ms=pk["device_ms"], plain_device_ms=pp["device_ms"],
                 kernels=pk["kernels"][:4], plain_kernels=pp["kernels"][:4],
-                **line_times(device, events))
+                events=events, graph_ms=graph, **line_times(device, graph))
 
 
 def with_bound(times, nbytes, ops):
@@ -2540,6 +2509,104 @@ def phase_examples(td, done):
         raise SystemExit("examples differ from their --device cpu runs")
 
 
+# bench records whose step runs no matcher: mining (host), the split
+# scorer and densify (from a masked buffer made before the step)
+BENCH_NO_MATCHER = ("mining_triplets_per_s", "train_split_evals_per_s",
+                    "densify_ms_per_frame")
+
+
+def start_bench():
+    """Start ``bench_torch.py`` in smoke mode (``OGPC_BENCH_SMOKE=1``: one
+    window of 3 steps a record, full sizes, every gate) on the card in the
+    background, stdout and stderr merged into one stream, with two
+    intra-op threads: a future of (exit code, output, seconds).  Untimed:
+    the caller drives only correctness phases until it has the result."""
+    import concurrent.futures
+
+    def run():
+        env = dict(os.environ, OGPC_BENCH_SMOKE="1", OMP_NUM_THREADS="2")
+        env.pop("OGPC_BENCH_FAST", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "bench_torch.py"], cwd=REPO,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=400)
+        return proc.returncode, proc.stdout, time.perf_counter() - t0
+
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(run)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_bench(done, smi):
+    """``bench_torch.py``'s smoke run on the card (``done``: the result of
+    ``start_bench``): exit 0, every gate passed (the oracle's among them),
+    the last JSON line the headline naming this card, the headline printed
+    at least twice and the same each time, the records' names exactly
+    ``bench.py``'s 20, each record timed by CUDA events (mining by the
+    host clock) with a device time, and the key kernel launched in every
+    step that runs a matcher."""
+    from bench_torch import HEADLINE, bench_py_metrics
+
+    rc, out, seconds = done
+    lines = []
+    for ln in out.splitlines():
+        if ln.startswith("{"):
+            try:
+                lines.append(json.loads(ln))
+            except ValueError:
+                pass
+    records = [j for j in lines if "metric" in j]
+    heads = [j for j in records if j["metric"] == HEADLINE]
+    want = bench_py_metrics()
+    failures = []
+    if rc != 0:
+        failures.append(f"exit {rc}: {out[-3000:]}")
+    if not (lines and lines[-1].get("metric") == HEADLINE
+            and len(heads) >= 2 and all(h == heads[-1] for h in heads)
+            and heads[-1].get("device") == smi):
+        failures.append(f"headline contract: {heads[-1:]} last {lines[-1:]}")
+    if len(want) != 20 or {j["metric"] for j in records} != want:
+        failures.append(f"metrics {sorted(j['metric'] for j in records)}")
+    for rec in records:
+        host = rec["metric"] == "mining_triplets_per_s"
+        if rec["timer"] != ("host" if host else "cuda-events") or (
+                not host and rec["device_ms"] is None):
+            failures.append(f"{rec['metric']}: timer {rec['timer']}, "
+                            f"device_ms {rec['device_ms']}")
+        if rec["metric"] not in BENCH_NO_MATCHER and \
+                rec["launches"].get("fused_keys", 0) < 1:
+            failures.append(f"{rec['metric']}: launches {rec['launches']}")
+    emit("bench", seconds=seconds, exit=rc, records=records[:-1],
+         gates=[ln for ln in out.splitlines()
+                if ln.startswith(("oracle check", "multi-plane gate",
+                                  "bench_torch:"))],
+         failures=failures)
+    if failures:
+        raise SystemExit(f"bench failed: {failures}")
+
+
+def phase_entry(launches):
+    """``entry_torch.entry()``'s module on the card against its module on
+    the CPU, on the same example pair (one key-kernel launch), and
+    ``entry_torch.dryrun_multichip(1)`` on the card."""
+    import entry_torch
+
+    cpu_mod, cpu_args = entry_torch.entry(device="cpu")
+    mod, args = entry_torch.entry()
+    out, counts = launches.run("entry", lambda: mod(*args),
+                               {"fused_keys": 1})
+    want = cpu_mod(*cpu_args)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(out, want))
+    t0 = time.perf_counter()
+    entry_torch.dryrun_multichip(1)
+    emit("entry", launches=counts, count=int(out[3]), equals_cpu=same,
+         dryrun_multichip_1_s=time.perf_counter() - t0)
+    if not same:
+        raise SystemExit("entry: the card's outputs differ from the CPU's")
+
+
 CLI = "opengpc_tpu_torch.cli.sparsematch"
 CLI_CAPACITY = str(1 << 20)  # above any pair's support count: nothing trimmed
 TTOTAL_REPEATS = 20
@@ -3669,6 +3736,21 @@ def phase_aot(td, oracle, paths, launches, smi):
         raise SystemExit(f"aot failed: {failures}")
 
 
+def phase_profiler_late(smi):
+    """How many of a window's kernel events the profiler keeps late in the
+    process: four windows of 50 census launches, no retake (the timing
+    phases run early because this falls as the process ages)."""
+    from opengpc_tpu_torch.ops.fused import fused_census
+    from opengpc_tpu_torch.utils import make_pair
+
+    img = torch.from_numpy(make_pair(H, W, TRUE_DISP)[0]).cuda()
+    kept = []
+    for _ in range(4):
+        prof = device_profile(lambda: fused_census(img), 50, tries=1)
+        kept.append(prof["kernels"][0][2] if prof["kernels"] else 0.0)
+    emit("profiler_late", card=smi, kernel_events_kept_a_call=kept)
+
+
 def load_mask(path):
     from opengpc_tpu_torch import load_forest, make_filter_mask
 
@@ -3693,6 +3775,7 @@ def main():
                 "fused_sparsematch_rows": phase_fused_match_vs_twin(masks),
                 "fused_keys_slab": phase_slab_vs_twin(masks)}
         oracle = build_oracle()
+        bench = start_bench()
         errs["fused_census"] = phase_census_vs_twin(oracle)
         phase_custom_ops(masks)
         launches = Launches()
@@ -3700,8 +3783,17 @@ def main():
         phase_routes(oracle, paths, launches)
         phase_variants(oracle, paths, masks, launches)
         phase_descriptors(paths, masks, launches)
+        phase_entry(launches)
         for name, err in phase_fuzz(td, oracle, launches).items():
             errs[name] = max(errs[name], err)
+        phase_bench(bench.result(), smi)
+        # the timing phases early in the process: the profiler loses
+        # kernel events late in a long one (``profiler_late`` shows it)
+        times = {"fused_keys": phase_times(smi)}
+        phase_key_times(smi, masks)
+        times.update(phase_new_times(smi, masks))
+        times.update(phase_slab_times(smi, masks))
+        phase_pyramid_times(smi, masks)
         examples = start_examples(td)
         phase_sharded_frame(oracle, paths, launches)
         phase_census(launches)
@@ -3715,17 +3807,11 @@ def main():
         train_ref = phase_train(smi, paths)
         phase_workflow(td, oracle, paths, launches)
         phase_examples(td, examples)
-        times = {"fused_keys": phase_times(smi)}
-        phase_key_times(smi, masks)
-        times.update(phase_new_times(smi, masks))
-        times.update(phase_slab_times(smi, masks))
-        phase_pyramid_times(smi, masks)
-        # after the timing phases: densify's profiler windows hold ~1,600
-        # launches a call, and the kernels line's windows come first
         phase_cli_single(td, oracle, paths, launches)
         phase_cli_sequence(td, launches)
         phase_densify(smi)
         phase_multi_device(td, oracle, paths, launches, train_ref, smi)
+        phase_profiler_late(smi)
     missing = [k for k, n in launches.total.items() if n == 0]
     if missing:
         raise SystemExit(f"no path launched {missing}")
@@ -3738,7 +3824,8 @@ def main():
         "bound_ms": times[name]["bound_ms"],
         "bound_by": times[name]["bound_by"],
         "library_ms": times[name]["library_ms"],
-        "ms_source": times[name]["ms_source"]} for name in KERNELS]}),
+        "ms_source": times[name]["ms_source"],
+        "graph_ms": times[name]["graph_ms"]["ms"]} for name in KERNELS]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
