@@ -59,6 +59,19 @@ was usable).  Every phase prints one JSON line; the last line
 is ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero; without a CUDA device the script exits non-zero before doing
 anything.
+
+    python3 chip_smoke.py --gpus 4
+
+runs instead the multi-device surface on four cards of one host, one rank
+a card under ``torchrun --nproc-per-node 4``, NCCL between them (the
+``md4_*`` phases): the key, slab and code kernels against their twins on
+every rank's card; every builder of ``opengpc_tpu_torch.parallel`` at
+full width against the single-device module of its contract, with exact
+launches on every rank; the dry run of ``entry_torch``; the sharded
+trainer at ~10^6 triplets; the CLIs and a sharded AOT artifact as
+four-rank launches against their one-card runs; and the collectives, the
+sharded frame and the batched module timed.  It fails with fewer than
+four visible cards, and when any rank fails or runs past its time.
 """
 
 import contextlib
@@ -462,8 +475,12 @@ def oracle_set(oracle, left, right, forest_file, settings):
     for the run."""
     from opengpc_tpu_torch.io import write_raw
 
+    # keyed by the oracle's arguments: settings that differ only in what
+    # the oracle does not read (the flat capacity) share a run
     key = (hashlib.sha256(left.tobytes() + right.tobytes()).hexdigest(),
-           left.shape, forest_file, settings)
+           left.shape, forest_file, settings.gradient_threshold,
+           settings.vertical_tolerance, settings.disp_high,
+           settings.epipolar_mode)
     if key in _ORACLE_SETS:
         return _ORACLE_SETS[key]
     with tempfile.TemporaryDirectory() as td:
@@ -3130,17 +3147,18 @@ MD_GRIDS = ((1, 1), (2, 2), (1, 4), (4, 1))
 TORCHRUN_TIMEOUT = 300
 
 
-def md_batches(h):
-    """The dense and sparse B = 4 batches of h x W pairs, host arrays."""
+def md_batches(h, batch=MD_B, w=W):
+    """The dense and sparse (density 0.15) batches of ``batch`` h x w
+    pairs, host arrays."""
     from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
 
     out = {}
     for scene, make in (
-            ("dense", lambda b: make_pair(h, W, TRUE_DISP, seed=600 + b)),
-            ("sparse", lambda b: make_sparse_pair(h, W, TRUE_DISP,
+            ("dense", lambda b: make_pair(h, w, TRUE_DISP, seed=600 + b)),
+            ("sparse", lambda b: make_sparse_pair(h, w, TRUE_DISP,
                                                   density=0.15,
                                                   seed=610 + b))):
-        pairs = [make(b) for b in range(MD_B)]
+        pairs = [make(b) for b in range(batch)]
         out[scene] = tuple(np.stack([p[i] for p in pairs]) for i in (0, 1))
     return out
 
@@ -3166,25 +3184,34 @@ def md_decode(contract, out, j, settings):
     return masked_supports_to_numpy(o[0], o[1], settings.disp_high)
 
 
-def torchrun(pool, module, argv, cwd):
-    """``torchrun --standalone --nproc-per-node 1 -m module argv`` (one
-    rank on this card, its own rendezvous port) on a thread of ``pool``:
-    a future of (rc, stdout, stderr, wall s).  A launch past
-    ``TORCHRUN_TIMEOUT`` is killed and fails."""
-    def run():
-        t0 = time.perf_counter()
-        try:
-            proc = subprocess.run(
-                [sys.executable, "-m", "torch.distributed.run",
-                 "--standalone", "--nproc-per-node", "1", "-m", module,
-                 *argv], cwd=cwd, capture_output=True, text=True,
-                timeout=TORCHRUN_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            return -9, "", "timed out", time.perf_counter() - t0
-        return (proc.returncode, proc.stdout, proc.stderr,
-                time.perf_counter() - t0)
+def run_group(argv, timeout, cwd=REPO):
+    """``argv`` in a session of its own: (rc, stdout, stderr, wall s).  At
+    ``timeout`` the whole session (a launcher and every rank it started)
+    is killed, and the run fails with rc -9."""
+    import signal
 
-    return pool.submit(run)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=cwd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return -9, out, err + "\ntimed out", time.perf_counter() - t0
+    return proc.returncode, out, err, time.perf_counter() - t0
+
+
+def torchrun(pool, module, argv, cwd, nproc=1):
+    """``torchrun --standalone --nproc-per-node nproc -m module argv``
+    (one rank a card, its own rendezvous port) on a thread of ``pool``: a
+    future of (rc, stdout, stderr, wall s).  A launch past
+    ``TORCHRUN_TIMEOUT`` is killed, ranks and all, and fails."""
+    return pool.submit(run_group, [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc-per-node", str(nproc), "-m", module, *argv],
+        TORCHRUN_TIMEOUT, cwd)
 
 
 def phase_multi_device(td, oracle, paths, launches, train_ref, smi):
@@ -3757,7 +3784,1138 @@ def load_mask(path):
     return make_filter_mask(load_forest(path))
 
 
-def main():
+# -- four cards of one host: python3 chip_smoke.py --gpus 4 --------------------
+#
+# The parent checks the cards, builds the kernels and the oracle once and
+# starts the rank worker (this script with --rank-worker) as one torchrun
+# launch of a rank a card, NCCL between them.  While the worker's
+# correctness phases run, the parent launches the CLIs over the same four
+# cards and their one-card references; the worker's trainer and timing
+# phases wait for the CLIs to end, so nothing else runs on the cards or
+# the host while they take their walls and times.
+
+MD4_WORKER_TIMEOUT = 240  # s, the rank worker's launch
+MD4_ITERS = 50            # calls a timing window
+NVLINK_BYTES_PER_S = 450e9  # one direction of an H100 SXM's NVLink
+MD4_KERNELS = ("fused_keys", "fused_keys_slab", "fused_codes")
+# the key and code ops (``ops.library``) and the kernel each launches
+MD4_OPS = {"fused_key_image": "fused_keys", "fused_keys": "fused_keys",
+           "fused_key_image_slab": "fused_keys_slab",
+           "fused_keys_slab": "fused_keys_slab",
+           "fused_codes": "fused_codes", "fused_codes_pair": "fused_codes"}
+
+
+@dataclasses.dataclass(frozen=True)
+class Md4Sizes:
+    """The four-card run's shapes: B pairs of h x w (the batched contracts
+    and the 2-D frame), pyramids of ph x w, the row-sharded frame at h x
+    w and at ``big``, and the trainer's triplets from ``train_pairs``
+    h x w scenes of ``keypoints`` keypoints each."""
+
+    h: int = H
+    w: int = W
+    ph: int = MD_PH
+    big: tuple = (2160, 3840)
+    b: int = 16
+    train_pairs: int = TRAIN_PAIRS
+    keypoints: int = KEYPOINTS
+
+
+# the CPU rehearsal over gloo ranks: frames of 64 rows a rank at n = 4
+MD4_SMALL = Md4Sizes(h=256, w=128, ph=256, big=(512, 192), b=8,
+                     train_pairs=2, keypoints=2000)
+
+
+class Md4Calls:
+    """Every call of the key and code ops (``MD4_OPS``, as ``ops.fused``
+    calls them: ``library.<op>``) while ``on``: (op, its arguments, its
+    output's tensors), each tensor copied as the call had it.  On the card
+    every call is one launch of its kernel."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def on(self):
+        from opengpc_tpu_torch.ops import library
+
+        ops = {op: getattr(library, op) for op in MD4_OPS}
+
+        def recording(op, fn):
+            def call(*args):
+                out = fn(*args)
+                self.calls.append((op, tuple(
+                    a.clone() if torch.is_tensor(a) else a for a in args),
+                    tuple(t.clone() for t in _leaves(out))))
+                return out
+            return call
+
+        for op, fn in ops.items():
+            setattr(library, op, recording(op, fn))
+        try:
+            yield
+        finally:
+            for op, fn in ops.items():
+                setattr(library, op, fn)
+
+
+def md4_plain(op, args):
+    """The plain version of the op ``op`` (its CPU implementation, which
+    runs on any device) on ``args``: its output's tensors."""
+    from opengpc_tpu_torch.ops import fused
+
+    if op == "fused_key_image":
+        out = fused._pair_keys_plain(*args)
+    elif op == "fused_key_image_slab":
+        *head, y0, h_total = args
+        out = fused._pair_keys_plain(*head, (y0, h_total))
+    elif op == "fused_keys":
+        out = fused.fused_keys_plain(*args)
+    elif op == "fused_keys_slab":
+        out = fused.fused_keys_slab_plain(*args)
+    elif op == "fused_codes":
+        out = fused.fused_codes_plain(*args)
+    else:  # fused_codes_pair
+        left, right, tests, thr = args
+        out = (fused.fused_codes_plain(left, tests, thr)
+               + fused.fused_codes_plain(right, tests, thr))
+    return tuple(_leaves(out))
+
+
+def md4_tests(args):
+    """The number of tests in a key or code op call's flat test list."""
+    return len(next(a for a in args if isinstance(a, list))) // 5
+
+
+def md4_has_candidates(op, args, out):
+    """Whether a key or code op's output marks a candidate anywhere (a
+    key op's sentinel base is its fifth argument)."""
+    if MD4_OPS[op] == "fused_codes":
+        return any(bool(t.any()) for t in out if t.dtype == torch.bool)
+    return bool((out[0] < args[4]).any())
+
+
+def md4_work(op, args, out):
+    """(bytes, integer operations) of one key or code op call: each
+    input read once, each output written once; the code math of every
+    image (``code_ops``) with codes for its candidates (the code kernel:
+    for every pixel)."""
+    imgs = [a for a in args if torch.is_tensor(a)]
+    tests = md4_tests(args)
+    h, w = imgs[0].shape[-2:]
+    images = sum(x.numel() // (h * w) for x in imgs)
+    nbytes = sum(x.numel() for x in imgs) + sum(
+        t.numel() * t.element_size() for t in out)
+    if MD4_OPS[op] == "fused_codes":
+        return nbytes, code_ops(images, h, w, images * h * w, tests)
+    rows = out[0].shape[-2]  # slab mode: the rows without the halos
+    return nbytes, code_ops(images, rows, w, int((out[0] < args[4]).sum()),
+                            tests)
+
+
+class Md4:
+    """One rank of the four-card run: its group, card, shapes, launch
+    counts and the failures of the phase in progress."""
+
+    def __init__(self, device, sizes, save=None):
+        import torch.distributed as dist
+
+        self.dist, self.world = dist, dist.group.WORLD
+        self.rank, self.n = dist.get_rank(), dist.get_world_size()
+        self.dev, self.sz, self.save = device, sizes, save
+        self.cuda = device.type == "cuda"
+        self.totals = dict.fromkeys(KERNELS, 0)
+        self.failures, self.saved = [], {}
+        self.calls, self.timed_calls = Md4Calls(), {}
+
+    def sync(self):
+        if self.cuda:
+            torch.cuda.synchronize(self.dev)
+
+    def run(self, key, fn, expect):
+        """``fn()`` with every launch counter at 0, read right after: a
+        failure unless each kernel launched its ``expect`` count on this
+        rank (on the CPU none: the wrappers take their twins there).  Its
+        calls of the key and code ops are recorded (``Md4Calls``); on the
+        card a failure too unless they are as many as the launches."""
+        for name in KERNELS:
+            wrapper(name).launches = 0
+        first = len(self.calls.calls)
+        with self.calls.on():
+            out = fn()
+        self.sync()
+        counts = {name: wrapper(name).launches for name in KERNELS}
+        want = {name: expect.get(name, 0) if self.cuda else 0
+                for name in KERNELS}
+        for name, k in counts.items():
+            self.totals[name] += k
+        if counts != want:
+            self.failures.append(f"rank {self.rank} {key}: launches "
+                                 f"{counts}, expected {want}")
+        calls = {name: 0 for name in counts}
+        for op, _, _ in self.calls.calls[first:]:
+            calls[MD4_OPS[op]] += 1
+        if self.cuda and calls != counts:
+            self.failures.append(f"rank {self.rank} {key}: op calls "
+                                 f"{calls}, launches {counts}")
+        return out
+
+    def keep(self, key, out):
+        """Rank 0 keeps a whole result on the sparse scene with the zero
+        forest for ``--save``."""
+        if (self.save and self.rank == 0
+                and key.endswith("/defaultZeroForest/sparse")):
+            for i, leaf in enumerate(_leaves(out)):
+                self.saved[f"{key}/{i}"] = leaf.cpu().numpy()
+
+    def finish(self, phase, **fields):
+        """Every rank's ``fields`` and failures gathered on every rank:
+        rank 0 prints the phase line, and every rank fails when one
+        did (so no rank waits in a collective for a rank that left)."""
+        ranks = [None] * self.n
+        self.dist.all_gather_object(ranks, dict(fields,
+                                                failures=self.failures))
+        self.failures = []
+        if self.rank == 0:
+            emit(phase, device=str(self.dev), world=self.n, ranks=ranks)
+        bad = [f for r in ranks for f in r["failures"]]
+        if bad:
+            raise SystemExit(f"{phase} failed: {bad[:20]}")
+
+
+def md4_grids(n):
+    """Every (n_data, n_rows) grid of n ranks: (1, 4), (2, 2), (4, 1) at
+    n = 4."""
+    return [(d, n // d) for d in range(1, n + 1) if n % d == 0]
+
+
+def md4_forest32(seed=32):
+    """A ``utils.random_forest`` of at least 32 tests (its filter mask
+    cuts it to 32 in file order): a forest the flat contract serves with
+    the code kernel, past the 30 tests the key kernel packs."""
+    from opengpc_tpu_torch.utils import random_forest
+
+    rng = np.random.default_rng(seed)
+    while True:
+        forest = random_forest(rng, max_ferns=8)
+        if sum(len(f.tests) for f in forest.ferns) >= 32:
+            return forest
+
+
+def md4_kernels(c):
+    """The three kernels of the multi-device path on this rank's card
+    against their plain versions, bit for bit, at every call the paths of
+    ``md4_builders`` made on this rank (``Md4Calls``): the plain version on
+    the call's own inputs against the output the kernel gave the path.
+    Each kernel must have met a candidate in some call.  Keeps, for
+    ``md4_kernel_times``, each kernel's call with the largest output.
+    Returns the largest difference a kernel."""
+    worst = dict.fromkeys(MD4_KERNELS, 0)
+    cases = dict.fromkeys(MD4_KERNELS, 0)
+    with_cand = dict.fromkeys(MD4_KERNELS, 0)
+    shapes = {k: set() for k in MD4_KERNELS}
+    for op, args, out in c.calls.calls:
+        name = MD4_OPS[op]
+        err = max(max_err(g, w_) for g, w_ in zip(
+            out, md4_plain(op, args), strict=True))
+        worst[name], cases[name] = max(worst[name], err), cases[name] + 1
+        with_cand[name] += md4_has_candidates(op, args, out)
+        shapes[name].add((op, tuple(args[0].shape), md4_tests(args)))
+        if err:
+            c.failures.append(f"rank {c.rank} {name}: {op} on "
+                              f"{tuple(args[0].shape)} differs from its "
+                              f"plain version by {err}")
+        best = c.timed_calls.get(name)
+        if best is None or out[0].numel() > best[2][0].numel():
+            c.timed_calls[name] = (op, args, out)
+    for name in MD4_KERNELS:
+        if not with_cand[name]:
+            c.failures.append(f"rank {c.rank} {name}: no call of the path "
+                              "met a candidate")
+    c.calls.calls = []
+    c.sync()
+    c.finish("md4_kernels", cases=cases, with_candidates=with_cand,
+             max_abs_err=worst,
+             shapes={k: sorted(map(list, v)) for k, v in shapes.items()})
+    return worst
+
+
+def md4_frames(sz):
+    """The row-sharded frame's dense and sparse pairs at h x w and at the
+    big shape, host arrays."""
+    from opengpc_tpu_torch.utils import make_pair, make_sparse_pair
+
+    return {shape: {"dense": make_pair(*shape, TRUE_DISP, seed=620 + i),
+                    "sparse": make_sparse_pair(*shape, TRUE_DISP,
+                                               density=0.15, seed=630 + i)}
+            for i, shape in enumerate(((sz.h, sz.w), tuple(sz.big)))}
+
+
+def pyramid_keys(xs, ys, ds, lv):
+    """One frame's pyramid supports as sorted ``support_keys``-style int64
+    keys of their (x, y, d), on the buffers' device: the support set
+    without a copy to the host."""
+    keep = lv >= 0
+    return torch.sort((xs[keep].long() << 43) | (ys[keep].long() << 22)
+                      | (ds[keep].long() + _D_BIAS)).values
+
+
+def md4_frame_cases(frames, paths):
+    """(shape, forest, ``sharded_cases`` case) of the row-sharded frame at
+    each shape, but the global contract where its (y, x, d) key does not
+    pack (the builder refuses it there: 2160x3840)."""
+    from opengpc_tpu_torch.infer import _global_rows_ok
+
+    out = []
+    for shape in frames:
+        for forest in FORESTS:
+            mask = load_mask(paths[forest])
+            out += [(shape, forest, case) for case in sharded_cases()
+                    if case[0] != "global-compact"
+                    or _global_rows_ok(mask, shape, case[1])]
+    return out
+
+
+def md4_prefetch(c, oracle, jobs):
+    """The oracle's support sets of ``jobs`` ((left, right, forest file,
+    settings)), several oracle processes at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max(1, (os.cpu_count() or 4) // c.n)) as pool:
+        list(pool.map(lambda job: oracle_set(oracle, *job), jobs))
+
+
+def md4_builders(c, oracle):
+    """Every multi-device builder over the n ranks, NCCL on the cards
+    (gloo on the CPU), each whole result (``run_whole``: the rank's
+    block, its module, the all-gather) equal bit for bit to the
+    single-device module of its contract on the rank's own card:
+
+    * the six batched contracts and the batched pyramid (3 levels) on
+      dense and sparse batches of B pairs, B/n a rank, and the flat one
+      with a 32-test random forest (the code kernel's path);
+    * the row-sharded pyramid (3 levels) on frame 0 of each pyramid batch;
+    * the 2-D frame (three contracts) and pyramid on every grid of n
+      ranks;
+    * the row-sharded frame, every contract, at h x w and the big shape.
+
+    Both forests.  The pyramids compare as support sets with exact counts,
+    the global sharded frame as a support set (its segments follow the
+    bucket order), a compacted result by its flags (one a rank or frame
+    group, set as the single-device module's) and its buffers where they
+    are clear.  Every unflagged frame of the single-device modules passes
+    the oracle gate (``pyramid_gate`` a level): rank r gates the frames j
+    with j % n == r and every n-th sharded-frame case.  Each path runs
+    with the launch counters at 0 and must launch exactly: ``fused_keys``
+    1 a rank's block on the folding contracts, 1 a pair on the flat and
+    global ones, 1 a level on the batched pyramid; ``fused_codes`` 1 a
+    pair on the flat one past 30 tests; ``fused_keys_slab`` 1 on the
+    row-sharded frame and the 2-D frame, 1 a level on the pyramids."""
+    from opengpc_tpu_torch import (InferenceSettings, build_sparsematch,
+                                   build_sparsematch_global_compact,
+                                   build_sparsematch_global_rows,
+                                   build_sparsematch_masked,
+                                   build_sparsematch_masked_compact,
+                                   build_sparsematch_rows)
+    from opengpc_tpu_torch import parallel as par
+    from opengpc_tpu_torch.pyramid import (build_pyramid_sparsematch,
+                                           pyramid_supports_to_numpy)
+
+    from opengpc_tpu_torch import make_filter_mask, save_forest
+
+    sz, dev, n, rank = c.sz, c.dev, c.n, c.rank
+    b, h, ph, per = sz.b, sz.h, sz.ph, sz.b // c.n
+    paths = {f: os.path.join(REPO, "forests", f + ".txt") for f in FORESTS}
+    # the flat contract past 30 tests (the code kernel), as a file for the
+    # oracle
+    forest32 = md4_forest32()
+    fd, paths["random32"] = tempfile.mkstemp(suffix=".txt")
+    os.close(fd)
+    save_forest(forest32, paths["random32"])
+    epi, lib = InferenceSettings(**SETTINGS_KW), InferenceSettings()
+    flat = dataclasses.replace(epi, capacity=h * sz.w)
+    contracts = {  # contract: (single-device builder, batched, settings)
+        "flat": (build_sparsematch, par.build_batched_sparsematch, flat),
+        "rows": (build_sparsematch_rows, par.build_batched_sparsematch_rows,
+                 epi),
+        "masked": (build_sparsematch_masked,
+                   par.build_batched_sparsematch_masked, epi),
+        "masked-compact": (build_sparsematch_masked_compact,
+                           par.build_batched_sparsematch_masked_compact, epi),
+        "global-rows": (build_sparsematch_global_rows,
+                        par.build_batched_sparsematch_global_rows, lib),
+        "global-compact": (build_sparsematch_global_compact,
+                           par.build_batched_sparsematch_global_compact, lib)}
+    single_frame = {k: contracts[k][0] for k in (
+        "masked", "rows", "masked-compact", "global-compact")}
+    folds = ("rows", "masked", "masked-compact")
+    t0 = time.perf_counter()
+    host = {hh: md_batches(hh, sz.b, sz.w) for hh in (h, ph)}
+    frames = md4_frames(sz)
+    mine = [j for j in range(b) if j % n == rank]
+    cases = md4_frame_cases(frames, paths)
+    jobs = []
+    for scene in ("dense", "sparse"):
+        for j in mine:
+            jobs.append((*(a[j] for a in host[h][scene]), paths["random32"],
+                         epi))
+    for forest in FORESTS:
+        for scene in ("dense", "sparse"):
+            for j in mine:
+                left, right = (a[j] for a in host[h][scene])
+                jobs += [(left, right, paths[forest], epi),
+                         (left, right, paths[forest], lib)]
+                left, right = (a[j] for a in host[ph][scene])
+                for _ in range(MD_LEVELS):
+                    jobs.append((left, right, paths[forest], epi))
+                    left, right = np_downscale2(left), np_downscale2(right)
+    for i, (shape, forest, (_, settings, scene, _)) in enumerate(cases):
+        if i % n == rank:
+            jobs.append((*frames[shape][scene], paths[forest], settings))
+    md4_prefetch(c, oracle, jobs)
+    setup_s = time.perf_counter() - t0
+    gpu = {hh: {s: tuple(torch.from_numpy(a).to(dev) for a in pair)
+                for s, pair in batches.items()}
+           for hh, batches in host.items()}
+    refs, report, gated = {}, {}, 0
+    world = c.world
+    grids = {g: par.make_mesh_2d(*g) for g in md4_grids(n)}
+
+    def reference(forest, scene, contract, mask):
+        """The single-device module's result on the whole batch, and the
+        oracle gate of this rank's unflagged frames."""
+        nonlocal gated
+        key = (forest, scene, contract)
+        if key in refs:
+            return refs[key]
+        ok = True
+        if contract == "pyramid":
+            out = build_pyramid_sparsematch(mask, epi, MD_LEVELS,
+                                            device=dev)(*gpu[ph][scene])
+            sets = [pyramid_keys(*(t[j] for t in out[:4])) for j in range(b)]
+            for j in mine:
+                sup = pyramid_supports_to_numpy(*(t[j] for t in out))
+                good, _ = pyramid_gate(oracle, *(a[j] for a in
+                                                 host[ph][scene]),
+                                       paths[forest], sup, epi, MD_LEVELS)
+                ok, gated = ok and good and len(sup) > 0, gated + 1
+            refs[key] = (out, ok, sets)
+            return refs[key]
+        build, _, settings = contracts[contract]
+        out = build(mask, settings, device=dev)(*gpu[h][scene])
+        flags = [False] * b
+        if contract == "masked-compact":
+            flags = [bool(out[2])] * b
+        elif contract == "global-compact":
+            flags = out[2].tolist()
+        for j in mine:
+            if flags[j]:
+                continue
+            sup = md_decode(contract, out, j, settings)
+            good, _ = oracle_gate(oracle, *(a[j] for a in host[h][scene]),
+                                  paths[forest], sup, settings)
+            ok, gated = ok and good and len(sup) > 0, gated + 1
+        refs[key] = (out, ok, None)
+        return refs[key]
+
+    def check(key, out, same, ok):
+        c.keep(key, out)
+        report[key] = bool(same and ok)
+        if not (same and ok):
+            c.failures.append(f"rank {rank} {key}: equals single device "
+                              f"{bool(same)}, oracle gate {bool(ok)}")
+
+    def equal(a, b_):
+        return all(torch.equal(x, y)
+                   for x, y in zip(_leaves(a), _leaves(b_), strict=True))
+
+    def compact_equal(out, want, groups):
+        return (tuple(out[2].shape) == (groups,)
+                and bool(out[2].any()) == bool(want[2])
+                and (bool(want[2]) or equal(out[:2], want[:2])))
+
+    def pyramid_equal(out, sets, counts, idx):
+        return all(torch.equal(out[4][i], counts[j]) and torch.equal(
+            pyramid_keys(*(t[i] for t in out[:4])), sets[j])
+            for i, j in idx)
+
+    mask32 = make_filter_mask(forest32)
+    for scene in ("dense", "sparse"):
+        want, ok, _ = reference("random32", scene, "flat", mask32)
+        key = f"batched/flat/random32/{scene}"
+        mod = par.build_batched_sparsematch(mask32, flat, world, device=dev)
+        out = c.run(key, lambda: mod.run_whole(*gpu[h][scene]),
+                    {"fused_codes": per})
+        check(key, out, equal(out, want), ok)
+    os.remove(paths["random32"])
+    for forest in FORESTS:
+        mask = load_mask(paths[forest])
+        for scene in ("dense", "sparse"):
+            lb, rb = gpu[h][scene]
+            pl, pr = gpu[ph][scene]
+            for contract, (_, build, s) in contracts.items():
+                want, ok, _ = reference(forest, scene, contract, mask)
+                key = f"batched/{contract}/{forest}/{scene}"
+                mod = build(mask, s, world, device=dev)
+                out = c.run(key, lambda: mod.run_whole(lb, rb),
+                            {"fused_keys": 1 if contract in folds else per})
+                check(key, out, compact_equal(out, want, n)
+                      if contract == "masked-compact" else equal(out, want),
+                      ok)
+            wantp, okp, sets = reference(forest, scene, "pyramid", mask)
+            key = f"batched/pyramid/{forest}/{scene}"
+            mod = par.build_batched_pyramid(mask, epi, world, MD_LEVELS,
+                                            device=dev)
+            out = c.run(key, lambda: mod.run_whole(pl, pr),
+                        {"fused_keys": MD_LEVELS})
+            check(key, out, equal(out, wantp), okp)
+            key = f"sharded_pyramid/{forest}/{scene}"
+            mod = par.build_sharded_frame_pyramid(mask, epi, world,
+                                                  MD_LEVELS, device=dev)
+            out = c.run(key, lambda: mod.run_whole(pl[0], pr[0]),
+                        {"fused_keys_slab": MD_LEVELS})
+            check(key, out, pyramid_equal(tuple(t[None] for t in out), sets,
+                                          wantp[4], [(0, 0)]), okp)
+            for (nd, nr), grid in grids.items():
+                tag = f"{nd}x{nr}"
+                for contract in folds:
+                    want, ok, _ = refs[(forest, scene, contract)]
+                    key = f"2d/{contract}/{tag}/{forest}/{scene}"
+                    mod = par.build_batched_sharded_frame_sparsematch(
+                        mask, epi, grid, contract, device=dev)
+                    out = c.run(key, lambda: mod.run_whole(lb, rb),
+                                {"fused_keys_slab": 1})
+                    check(key, out, compact_equal(out, want, nd)
+                          if contract == "masked-compact"
+                          else equal(out, want), ok)
+                key = f"2d/pyramid/{tag}/{forest}/{scene}"
+                mod = par.build_batched_sharded_frame_pyramid(
+                    mask, epi, grid, MD_LEVELS, device=dev)
+                out = c.run(key, lambda: mod.run_whole(pl, pr),
+                            {"fused_keys_slab": MD_LEVELS})
+                check(key, out, pyramid_equal(out, sets, wantp[4], [
+                    (j, j) for j in range(b)]), okp)
+
+    flags = {}
+    for i, (shape, forest, (contract, settings, scene, flag)) in enumerate(
+            cases):
+        mask = load_mask(paths[forest])
+        left, right = (torch.from_numpy(a).to(dev)
+                       for a in frames[shape][scene])
+        key = f"frame/{shape[0]}x{shape[1]}/{contract}/{forest}/{scene}"
+        mod = par.build_sharded_frame_sparsematch(mask, settings, world,
+                                                  contract, device=dev)
+        out = c.run(key, lambda: mod.run_whole(left, right),
+                    {"fused_keys_slab": 1})
+        want = single_frame[contract](mask, settings, device=dev)(left,
+                                                                  right)
+        if flag is not None:
+            # the flags agree; at the one-card phases' 436x1024 they are
+            # also the ones ``sharded_cases`` names
+            flags[key] = [bool(out[-1]), bool(want[-1])]
+            if flags[key][0] != flags[key][1] or (
+                    shape == (H, W) and flags[key][0] != flag):
+                c.failures.append(f"rank {rank} {key}: overflow (sharded, "
+                                  f"single device) {flags[key]}, want "
+                                  f"{flag}")
+                continue
+            if flags[key][0]:
+                check(key, out, True, True)
+                continue
+        sup = _decode(contract, out, settings)
+        if contract == "global-compact":
+            same = np.array_equal(support_keys(sup), support_keys(
+                _decode(contract, want, settings)))
+        else:
+            same = equal(out, want)
+        ok = True
+        if i % n == rank:
+            ok, _ = oracle_gate(oracle, *frames[shape][scene],
+                                paths[forest], sup, settings)
+            gated += 1
+        check(key, out, same and len(sup) > 0, ok)
+    if c.save and rank == 0:
+        for shape, scenes in frames.items():
+            for scene, pair in scenes.items():
+                for side, a in zip("lr", pair):
+                    c.saved[f"input/frame/{shape[0]}x{shape[1]}/{scene}/"
+                            f"{side}"] = a
+        for hh, batches in host.items():
+            for scene, pair in batches.items():
+                for side, a in zip("lr", pair):
+                    c.saved[f"input/batch/{hh}/{scene}/{side}"] = a
+    c.finish("md4_builders", paths=len(report), setup_s=setup_s,
+             paths_s=time.perf_counter() - t0 - setup_s,
+             oracle_runs=len(jobs), gated_frames=gated, flags=flags,
+             passed=sum(report.values()),
+             launches={k: v for k, v in c.totals.items() if v})
+
+
+def md4_step(c):
+    """``entry_torch.dryrun_multichip(n)`` on the n ranks: every builder at
+    tiny shapes against its single-device module (the counterpart of the
+    JAX package's ``MULTICHIP_r0*.json`` runs)."""
+    import entry_torch
+
+    t0 = time.perf_counter()
+    entry_torch.dryrun_multichip(c.n, device=c.dev)
+    c.sync()
+    c.finish("md4_step", seconds=time.perf_counter() - t0)
+
+
+def md4_train(c):
+    """The sharded trainer over the n ranks (``train_forest(group=)``,
+    each level's counts one ``all_reduce``) at ``phase_train``'s
+    triplets and forest settings, zero optimizer: its forest text equals
+    the one-card trainer's on the rank's own card, each with its wall s
+    (on the cards taken after the CLI launches end)."""
+    from opengpc_tpu_torch import (fern_factory, serialize_forest,
+                                   train_forest, zero_optimizer)
+    from opengpc_tpu_torch.mine import (extract_triplets_device,
+                                        mine_stereo_pair)
+    from opengpc_tpu_torch.utils import make_scene
+
+    sz, rng = c.sz, np.random.default_rng(1)
+    t0 = time.perf_counter()
+    chunks = []
+    for _ in range(sz.train_pairs):
+        left, right, gt, occ = make_scene(rng, sz.h, sz.w)
+        keys = mine_stereo_pair(gt, occ, np.zeros((sz.h, sz.w), np.uint8),
+                                sz.keypoints, *RADII, rng)
+        chunks.append(extract_triplets_device(left, right, *keys,
+                                              device=c.dev))
+    trips = np.concatenate(chunks)
+    del chunks
+    build_s = time.perf_counter() - t0
+    walls, texts = {}, {}
+    for name, group in (("one_card", None), ("ranks", c.world)):
+        t0 = time.perf_counter()
+        texts[name] = serialize_forest(train_forest(
+            trips, fern_factory(2, 2, 2, 5), zero_optimizer(), seed=0,
+            verbose=False, device=c.dev, group=group))
+        c.sync()
+        walls[name] = time.perf_counter() - t0
+    if texts["ranks"] != texts["one_card"]:
+        c.failures.append(f"rank {c.rank}: the sharded trainer's forest "
+                          "differs from the one-card forest")
+    c.finish("md4_train", triplets=len(trips), dataset_build_s=build_s,
+             wall_s=walls["ranks"], one_card_wall_s=walls["one_card"],
+             equals_one_card=texts["ranks"] == texts["one_card"])
+
+
+def md4_times(c):
+    """Times on the cards, every rank timing at once (rank 0's numbers and
+    every rank's in the line): CUDA events ms a call over ``MD4_ITERS``
+    calls and the profiler's device ms a call of the n-way sharded frame
+    (masked and global, ``forward`` on the rank's rows and ``run_whole``)
+    against the single-device masked module on the whole frame, at h x w
+    and the big shape; each collective alone on the real buffers (the
+    halo ``all_to_all_single``, the global bucket ``all_to_all_single``,
+    the flag ``all_reduce`` and one ``all_gather_outputs`` of the masked
+    frame), with its bytes and GB/s; pairs/s of the batched masked module
+    at B over the n cards against B/n pairs on one; and the three kernels
+    of the path against their plain versions at a call of the path
+    (``md4_kernel_times``), with their bounds.  Every window has the same calls on every rank, so the
+    collectives stay matched."""
+    import torch.distributed._functional_collectives as funcol
+
+    from opengpc_tpu_torch import InferenceSettings, build_sparsematch_masked
+    from opengpc_tpu_torch import parallel as par
+    from opengpc_tpu_torch.infer import _global_rows_ok
+    from opengpc_tpu_torch.ops.fused import PAD
+    from opengpc_tpu_torch.parallel.frame import _global_send, _slab_keys
+    from opengpc_tpu_torch.parallel.groups import (any_rank, done,
+                                                   exchange_halos)
+    from opengpc_tpu_torch.utils import make_pair
+
+    sz, n, rank, world = c.sz, c.n, c.rank, c.world
+    epi, lib = InferenceSettings(**SETTINGS_KW), InferenceSettings()
+    zero = load_mask(os.path.join(REPO, "forests", "defaultZeroForest.txt"))
+
+    def timed(fn, iters=MD4_ITERS):
+        """Events ms a call, and the profiler's device ms a call split into
+        compute and the NCCL kernels (which wait for the slowest rank)."""
+        prof = device_profile(fn, max(5, iters // 5), tries=1)
+        return dict(events_ms=cuda_ms(fn, iters),
+                    device_ms=prof["device_ms"],
+                    collective_ms=prof["collective_ms"],
+                    compute_ms=prof["device_ms"] - prof["collective_ms"],
+                    whole=prof["whole"], top=prof["kernels"][:6])
+
+    def rate(nbytes, ms):
+        gbs = nbytes / (ms * 1e-3) / 1e9
+        return dict(bytes=nbytes, us=ms * 1e3, gb_per_s=gbs,
+                    nvlink_share=gbs * 1e9 / NVLINK_BYTES_PER_S)
+
+    out = {}
+    for fh, fw in ((sz.h, sz.w), tuple(sz.big)):
+        tag = f"{fh}x{fw}"
+        left, right = (torch.from_numpy(a).to(c.dev)
+                       for a in make_pair(fh, fw, TRUE_DISP, seed=640))
+        single = build_sparsematch_masked(zero, epi, device=c.dev)
+        masked = par.build_sharded_frame_sparsematch(zero, epi, world,
+                                                     "masked", device=c.dev)
+        ls, rs = masked.shard(left, right)
+        modules = {
+            "single_device_masked": lambda: single(left, right),
+            "sharded_masked_forward": lambda: masked(ls, rs),
+            "sharded_masked_run_whole": lambda: masked.run_whole(left,
+                                                                 right)}
+        # the global contract where its (y, x, d) key packs (not at 4K)
+        glob = None
+        if _global_rows_ok(zero, (fh, fw), lib):
+            glob = par.build_sharded_frame_sparsematch(
+                zero, lib, world, "global-compact", device=c.dev)
+            modules["sharded_global_forward"] = lambda: glob(ls, rs)
+        row = {name: timed(fn) for name, fn in modules.items()}
+        sh = fh // n
+        both = torch.stack([ls, rs])
+        flag = torch.zeros((), dtype=torch.bool, device=c.dev)
+        res = masked(ls, rs)
+        nbrs = (rank > 0) + (rank < n - 1)
+        per_nb = PAD * fw * 2
+        gathered = sum(t.numel() * t.element_size() for t in _leaves(res))
+        coll = {
+            "halo_all_to_all": (lambda: exchange_halos(both, world, rank, n),
+                                nbrs * per_nb),
+            "flag_all_reduce": (lambda: any_rank(flag, world), 4),
+            "all_gather_outputs": (lambda: par.all_gather_outputs(res, world),
+                                   n * gathered)}
+        if glob is not None:
+            key = _slab_keys(glob, both, *exchange_halos(both, world, rank, n),
+                             rank * sh, fh)
+            send, _ = _global_send(glob, key, rank, n, fh)
+            coll["bucket_all_to_all"] = (lambda: done(
+                funcol.all_to_all_single(send, None, None, world)),
+                send.numel() * 4)
+        row["collectives"] = {}
+        for name, (fn, nbytes) in coll.items():
+            t = timed(fn)
+            row["collectives"][name] = dict(rate(nbytes, t["events_ms"]),
+                                            **t)
+        row["collectives"]["halo_all_to_all"]["bytes_a_neighbour"] = per_nb
+        if glob is not None:
+            row["collectives"]["bucket_all_to_all"]["cap"] = send.shape[1]
+        out[tag] = row
+    lefts, rights = (torch.from_numpy(a).to(c.dev)
+                     for a in md_batches(sz.h, sz.b, sz.w)["dense"])
+    batched = par.build_batched_sparsematch_masked(zero, epi, world,
+                                                   device=c.dev)
+    lb, rb = batched.shard(lefts, rights)
+    single = build_sparsematch_masked(zero, epi, device=c.dev)
+    pairs = {"batched_run_whole": (lambda: batched.run_whole(lefts, rights),
+                                   sz.b),
+             "batched_forward": (lambda: batched(lb, rb), sz.b),
+             "one_card": (lambda: single(lb, rb), sz.b // n)}
+    out["pairs_per_s"] = {}
+    for name, (fn, count) in pairs.items():
+        t = timed(fn)
+        out["pairs_per_s"][name] = dict(t, pairs=count,
+                                        pairs_per_s=count / t["events_ms"]
+                                        * 1e3)
+    out["kernels"] = md4_kernel_times(c)
+    c.finish("md4_times", **out)
+    return out
+
+
+def md4_kernel_times(c):
+    """Each kernel of the path against its plain version on this rank's
+    card (``kernel_vs_plain_times``), at the path's own call with the
+    largest output (``md4_kernels`` kept it), with its bound."""
+    from opengpc_tpu_torch.ops import library
+
+    out = {}
+    for name, (op, args, res) in c.timed_calls.items():
+        times = kernel_vs_plain_times(lambda: getattr(library, op)(*args),
+                                      lambda: md4_plain(op, args), 100, 10)
+        out[name] = dict(with_bound(times, *md4_work(op, args, res)), op=op,
+                         shape=list(args[0].shape), tests=md4_tests(args))
+    return out
+
+
+def rank_worker(argv):
+    """One rank of the four-card run, started by ``main_gpus`` as
+    ``torchrun --nproc-per-node N chip_smoke.py --rank-worker ...``: the
+    ``md4_*`` phases on ``cuda:LOCAL_RANK`` over NCCL, or with ``--device
+    cpu`` over gloo at the CPU rehearsal's shapes (``--small``), where
+    there is nothing to time.  ``--wait FILE`` holds the trainer and the
+    timing phase until FILE exists; ``--save FILE`` writes rank 0's kept
+    results."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from opengpc_tpu_torch.parallel import init_distributed
+
+    p = argparse.ArgumentParser(prog="chip_smoke.py --rank-worker")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--small", action="store_true")
+    p.add_argument("--wait", default=None)
+    p.add_argument("--save", default=None)
+    args = p.parse_args(argv)
+    cpu = args.device == "cpu"
+    if cpu:
+        torch.set_num_threads(1)
+    init_distributed("gloo" if cpu else "nccl")
+    device = (torch.device("cpu") if cpu else
+              torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0))))
+    c = Md4(device, MD4_SMALL if args.small else Md4Sizes(), args.save)
+    oracle = os.path.join(REPO, "cpp", "build", "oracle")
+    if not os.path.exists(oracle):
+        raise SystemExit(f"no oracle at {oracle}: make -C cpp build/oracle")
+    try:
+        md4_builders(c, oracle)
+        errs = md4_kernels(c)
+        md4_step(c)
+        if not cpu:
+            t0 = time.perf_counter()
+            while args.wait and not os.path.exists(args.wait):
+                if time.perf_counter() - t0 > MD4_WORKER_TIMEOUT:
+                    raise SystemExit(f"{args.wait} never came")
+                time.sleep(0.2)
+        md4_train(c)
+        if not cpu:
+            times = md4_times(c)
+            totals = [None] * c.n
+            dist.all_gather_object(totals, c.totals)
+            if c.rank == 0:
+                emit("md4_kernel_line", launches={
+                    k: sum(t[k] for t in totals) for k in KERNELS},
+                    max_abs_err=errs, times=times["kernels"])
+        if args.save and c.rank == 0:
+            np.savez(args.save, **c.saved)
+    finally:
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank == 0:
+            emit("md4_worker_exit")
+
+
+def md4_worker_line(lines, phase):
+    """The worker's JSON line of ``phase``."""
+    for ln in lines:
+        if ln.startswith('{"phase": "' + phase + '"'):
+            return json.loads(ln)
+    raise SystemExit(f"the rank worker printed no {phase} line")
+
+
+def start_rank_worker(n, wait, td):
+    """The rank worker as one ``torchrun --standalone --nproc-per-node n``
+    launch in a session of its own, its output copied to this process's
+    stdout as it comes, NCCL's log to ``td/nccl.<pid>.log``: (process, its
+    lines, the copying thread)."""
+    import threading
+
+    env = dict(os.environ, NCCL_DEBUG="INFO",
+               NCCL_DEBUG_FILE=os.path.join(td, "nccl.%p.log"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), os.path.join(REPO, "chip_smoke.py"),
+         "--rank-worker", "--wait", wait], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    lines = []
+
+    def copy():
+        for ln in proc.stdout:
+            lines.append(ln.rstrip("\n"))
+            # the parent's in-process CLI runs swap sys.stdout meanwhile
+            sys.__stdout__.write(ln)
+            sys.__stdout__.flush()
+
+    thread = threading.Thread(target=copy, daemon=True)
+    thread.start()
+    return proc, lines, thread
+
+
+def md4_inputs(td):
+    """The CLI launches' inputs: the dense 436x1024 pair and a 448x1024
+    pair as PNGs, ``cli_sequence``'s 32 pairs in two directories and a
+    triplet file of four ``make_scene`` pairs (host extraction)."""
+    from opengpc_tpu_torch.io import write_png
+    from opengpc_tpu_torch.io.triplets import save_triplets
+    from opengpc_tpu_torch.mine import extract_triplets, mine_stereo_pair
+    from opengpc_tpu_torch.utils import make_pair, make_scene
+
+    dense = write_pair_pngs(td, "dense", *make_pair(H, W, TRUE_DISP))
+    tall = write_pair_pngs(td, "tall", *make_pair(MD_PH, W, TRUE_DISP,
+                                                  seed=3))
+    seq = [os.path.join(td, "seq_l"), os.path.join(td, "seq_r")]
+    for d in seq:
+        os.makedirs(d)
+    for i, pair in enumerate(seq_frames()[0]):
+        for d, img in zip(seq, pair):
+            write_png(os.path.join(d, f"f{i:04d}.png"), img)
+    rng, chunks = np.random.default_rng(5), []
+    for _ in range(4):
+        left, right, gt, occ = make_scene(rng, H, W)
+        keys = mine_stereo_pair(gt, occ, np.zeros((H, W), np.uint8),
+                                KEYPOINTS, *RADII, rng)
+        chunks.append(extract_triplets(left, right, *keys))
+    trips = os.path.join(td, "triplets.bin")
+    save_triplets(np.concatenate(chunks), trips)
+    return dense, tall, seq, trips
+
+
+def md4_cli_cases(inputs, n):
+    """(name, module, argv with OUT for its output directory) of the CLI
+    launches over n ranks; the one-card reference of each is the same
+    argv without --data-parallel / --shard-frame."""
+    dense, tall, seq, trips = inputs
+    forest = os.path.join(REPO, "forests", "defaultZeroForest.txt")
+    single = ["--capacity", CLI_CAPACITY, "--out", "OUT/d.png",
+              "--supports-out", "OUT/s.txt"]
+    d = 2 if n % 2 == 0 else 1  # the 2-D grid's frame groups
+    return [
+        (f"single_shard{n}", CLI, [forest, *dense, "--shard-frame", str(n),
+                                   "--densify", "OUT/dense.png", *single]),
+        (f"single_shard{n}_pyramid3", CLI, [
+            forest, *tall, "--shard-frame", str(n), "--pyramid", "3",
+            *single]),
+        (f"sequence_data{n}_batch4", CLI, [
+            forest, *seq, "--data-parallel", str(n), "--batch", "4", "--out",
+            "OUT/d.png"]),
+        (f"sequence_data{d}_shard{n // d}", CLI, [
+            forest, *seq, "--data-parallel", str(d), "--shard-frame",
+            str(n // d), "--batch", "4", "--out", "OUT/d.png"]),
+        (f"train_data{n}", "opengpc_tpu_torch.cli.train",
+         [trips, "OUT/fresh.txt", "--seed", "4", "--data-parallel", str(n)])]
+
+
+def one_card_flags(argv):
+    """``argv`` without --data-parallel / --shard-frame and their values."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in ("--data-parallel", "--shard-frame"):
+            skip = True
+        else:
+            out.append(a)
+    return out
+
+
+def same_files(got, want):
+    """Two output directories hold the same files: byte for byte, a
+    supports file's lines as a set (a sharded run writes them in
+    per-rank blocks)."""
+    a, b = dir_bytes(got), dir_bytes(want)
+    if not a or sorted(a) != sorted(b):
+        return False
+    return all(sorted(a[k].splitlines()) == sorted(b[k].splitlines())
+               if k.endswith(".txt") else a[k] == b[k] for k in a)
+
+
+def md4_cli(td, inputs, oracle, n):
+    """The CLIs as ``torchrun --nproc-per-node n`` launches on the cards,
+    all started together (``md4_cli_cases``; at n = 4): ``sparsematch
+    --shard-frame 4`` on one pair, plain (with ``--densify``) and with
+    ``--pyramid 3``; sequence mode over ``cli_sequence``'s 32 pairs at
+    ``--data-parallel 4 --batch 4`` and ``--data-parallel 2 --shard-frame
+    2 --batch 4``; ``cli.train --data-parallel 4``; ``cli.aot export
+    --shard-frame 4`` and then ``run`` of its artifact.  Meanwhile the one-card reference of each
+    runs in this process on card 0.  Every launch must exit 0, and every
+    file equal the one-card run's (``same_files``); the artifact's
+    supports equal the one-card CLI's on the pair as a set and pass the
+    oracle gate."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from opengpc_tpu_torch import InferenceSettings
+    from opengpc_tpu_torch.cli.train import main as train_main
+    from opengpc_tpu_torch.io.png import read_gray
+
+    forest = os.path.join(REPO, "forests", "defaultZeroForest.txt")
+    dense = inputs[0]
+    art_dir = os.path.join(td, "md4_aot")
+    os.makedirs(art_dir)
+    art = os.path.join(art_dir, "m.ogpcx")
+    pool = ThreadPoolExecutor(max_workers=8)
+    t0 = time.perf_counter()
+    launched = {}
+    for name, module, argv in md4_cli_cases(inputs, n):
+        out_dir = os.path.join(td, f"md4_{name}")
+        os.makedirs(out_dir)
+        launched[name] = (module, argv, out_dir, torchrun(
+            pool, module, [a.replace("OUT", out_dir) for a in argv], REPO,
+            nproc=n))
+    export = torchrun(pool, AOT_CLI, ["export", forest, art, "--height",
+                                      str(H), "--width", str(W),
+                                      "--shard-frame", str(n)], REPO,
+                     nproc=n)
+    torch.cuda.set_device(0)
+    refs, ref_s = {}, {}
+    for name, (module, argv, _, _) in launched.items():
+        flags = one_card_flags(argv)
+        key = tuple(flags)
+        if key in refs:
+            launched[name] += (refs[key],)
+            continue
+        ref_dir = os.path.join(td, f"md4_ref_{name}")
+        os.makedirs(ref_dir)
+        flags = [a.replace("OUT", ref_dir) for a in flags]
+        t1 = time.perf_counter()
+        if module == CLI:
+            rc, _, err = run_cli(flags)
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc, err = train_main(flags), ""
+        ref_s[name] = time.perf_counter() - t1
+        if rc:
+            raise SystemExit(f"one-card reference of {name} failed: {err}")
+        refs[key] = ref_dir
+        launched[name] += (ref_dir,)
+    rc, out, err, wall = export.result()
+    report, failures = {"aot_export": dict(rc=rc, wall_s=wall)}, []
+    if rc:
+        failures.append(f"aot export: rc {rc} {err[-2000:]}")
+    else:
+        sup_out = os.path.join(art_dir, "s.txt")
+        rc, out, err, wall = torchrun(pool, AOT_CLI, [
+            "run", art, *dense, "--supports-out", sup_out], REPO,
+            nproc=n).result()
+        ref = os.path.join(launched[f"single_shard{n}"][4], "s.txt")
+        same = ok = False
+        if rc == 0:
+            got = np.loadtxt(sup_out, dtype=np.int64).reshape(-1, 3)
+            same = np.array_equal(support_keys(got), support_keys(
+                np.loadtxt(ref, dtype=np.int64).reshape(-1, 3)))
+            ok, gate = oracle_gate(oracle, read_gray(dense[0]),
+                                   read_gray(dense[1]), forest, got,
+                                   InferenceSettings(**SETTINGS_KW))
+        report["aot_run"] = dict(rc=rc, wall_s=wall, stdout=out[-300:],
+                                 equals_one_card=same, oracle_gate=ok)
+        if not (rc == 0 and same and ok):
+            failures.append(f"aot run: {report['aot_run']} {err[-2000:]}")
+    for name, (_, _, out_dir, fut, ref_dir) in launched.items():
+        rc, out, err, wall = fut.result()
+        same = rc == 0 and same_files(out_dir, ref_dir)
+        report[name] = dict(rc=rc, wall_s=wall, equals_one_card=same,
+                            files=len(dir_bytes(out_dir)),
+                            stdout=out.splitlines()[-2:])
+        if not same:
+            failures.append(f"{name}: {report[name]} {err[-2000:]}")
+    pool.shutdown()
+    emit("md4_cli", ranks=n, seconds=time.perf_counter() - t0,
+         one_card_s=ref_s, launches=report, failures=failures)
+    return failures
+
+
+def md4_nccl(td):
+    """What NCCL's log says of the rank worker's links: the transports
+    its channels took (``... via P2P/...``) and its version."""
+    import glob
+
+    via, version = set(), set()
+    for path in glob.glob(os.path.join(td, "nccl.*.log")):
+        with open(path, errors="replace") as f:
+            for ln in f:
+                if " via " in ln:
+                    via.add(ln.split(" via ", 1)[1].strip())
+                elif "NCCL version" in ln:
+                    version.add(ln.split("NCCL version", 1)[1].strip())
+    emit("md4_nccl", transports=sorted(via), version=sorted(version))
+
+
+def main_gpus(n):
+    """``chip_smoke.py --gpus n``: the multi-device surface on n cards of
+    one host, one rank a card under torchrun, NCCL between them (see the
+    ``md4_*`` phases).  Fails without n visible cards: it never runs fewer
+    ranks, and never gloo."""
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if count < n:
+        print(f"chip_smoke --gpus {n}: needs {n} CUDA devices, {count} "
+              "visible", file=sys.stderr)
+        sys.exit(2)
+    import opengpc_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    # the links between the cards, as far as this host shows them: the
+    # topology matrix and NVLink status (a container may refuse either;
+    # its exit code is kept) and CUDA's peer access
+    links = {}
+    for name, cmd in (("topo", ["nvidia-smi", "topo", "-m"]),
+                      ("nvlink", ["nvidia-smi", "nvlink", "--status"])):
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        links[name] = dict(rc=r.returncode,
+                           lines=(r.stdout + r.stderr).splitlines()[:40])
+    print("\n".join(smi + links["topo"]["lines"]), flush=True)
+    emit("md4_device", nvidia_smi=smi, links=links,
+         peer_access=[[i == j or torch.cuda.can_device_access_peer(i, j)
+                       for j in range(count)] for i in range(count)],
+         torch=torch.__version__, cuda=torch.version.cuda, count=count,
+         names=[torch.cuda.get_device_name(i) for i in range(count)])
+    phase_build()
+    oracle = build_oracle()
+    torch.set_num_threads(4)
+    with tempfile.TemporaryDirectory() as td:
+        inputs = md4_inputs(td)
+        wait = os.path.join(td, "cli_done")
+        t0 = time.perf_counter()
+        proc, lines, thread = start_rank_worker(n, wait, td)
+        try:
+            try:
+                failures = md4_cli(td, inputs, oracle, n)
+            finally:
+                open(wait, "w").close()
+            rc = proc.wait(timeout=MD4_WORKER_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            raise SystemExit(f"the rank worker ran past "
+                             f"{MD4_WORKER_TIMEOUT} s and was killed")
+        finally:
+            if proc.poll() is None:
+                import signal
+
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        thread.join()
+        # the worker's own lines count their seconds from its start
+        emit("md4_worker", rc=rc, wall_s=time.perf_counter() - t0)
+        md4_nccl(td)
+    if rc:
+        raise SystemExit(f"the rank worker failed: exit {rc}")
+    if failures:
+        raise SystemExit(f"md4_cli failed: {failures}")
+    line = md4_worker_line(lines, "md4_kernel_line")
+    for phase in ("md4_kernels", "md4_builders", "md4_step", "md4_train",
+                  "md4_times"):
+        md4_worker_line(lines, phase)
+    missing = [k for k in MD4_KERNELS if not line["launches"][k]]
+    if missing:
+        raise SystemExit(f"no path launched {missing}")
+    print("\n".join(smi), flush=True)
+    print(json.dumps({"kernels": [{
+        "name": name, "route": "cuda", "source": KERNELS[name][1],
+        "replaces": KERNELS[name][2], "launches": line["launches"][name],
+        "max_abs_err": line["max_abs_err"][name],
+        "ms": line["times"][name]["ms"],
+        "plain_ms": line["times"][name]["plain_ms"],
+        "bound_ms": line["times"][name]["bound_ms"],
+        "bound_by": line["times"][name]["bound_by"], "library_ms": None,
+        "ms_source": line["times"][name]["ms_source"]}
+        for name in MD4_KERNELS]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main(argv=None):
+    import argparse
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank-worker"]:
+        return rank_worker(argv[1:])
+    p = argparse.ArgumentParser(description="The port's smoke run on the "
+                                "card; with --gpus N its multi-device "
+                                "surface on N cards of one host.")
+    p.add_argument("--gpus", type=int, default=None, metavar="N",
+                   help="run the multi-device phases on N cards (one rank "
+                   "a card, NCCL); fails with fewer than N visible")
+    args = p.parse_args(argv)
+    if args.gpus is not None:
+        return main_gpus(args.gpus)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible; this script runs only on "
               "a GPU", file=sys.stderr)

@@ -11,6 +11,11 @@
 
     python3 entry_torch.py                 # on the card
     python3 entry_torch.py --device cpu    # the CPU twins
+    torchrun --nproc-per-node 4 entry_torch.py   # one rank a card, NCCL
+
+Under ``torchrun`` every rank joins the launch's group first (NCCL on
+``cuda:LOCAL_RANK``, gloo with ``--device cpu``), so the dry run spans the
+launch's ranks.
 """
 
 import os
@@ -74,16 +79,23 @@ def main(argv=None):
 
     import torch.distributed as dist
 
+    from opengpc_tpu_torch.parallel.groups import in_launch, join_launch
+
     p = argparse.ArgumentParser(description="The port's entry points.")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu: the CPU twins")
     args = p.parse_args(argv)
-    module, example = entry(args.device)
+    device = args.device
+    if in_launch():
+        _, device = join_launch(args.device)
+    module, example = entry(device)
     out = module(*example)
     print("entry ok:", int(out[3]), "matches")
-    dryrun_multichip(dist.get_world_size() if dist.is_initialized() else 1,
-                     device=args.device)
-    print("dryrun_multichip ok")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    dryrun_multichip(world, device=device)
+    print(f"dryrun_multichip ok: {world} rank(s)")
+    if in_launch():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

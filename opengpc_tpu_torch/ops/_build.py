@@ -6,13 +6,17 @@ library with a plain C interface, which ``ctypes`` loads.  The library is
 written to ``opengpc_tpu_torch/_build/`` under a name keyed by a hash of
 the flags and of every file under ``csrc/`` (sources and the headers they
 include), so an edited source or header rebuilds and an unchanged tree
-loads the library already there.  A missing ``nvcc`` or a failed build
-raises: there is no fallback.
+loads the library already there.  The build runs under a ``flock`` on
+``<library>.lock``, so processes that start together (the ranks of a
+``torchrun`` launch) compile once: the first builds, the others wait and
+load its library.  A missing ``nvcc`` or a failed build raises: there is
+no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -113,7 +117,11 @@ def load_library() -> ctypes.CDLL:
             raise RuntimeError(f"no CUDA sources under {CSRC}")
         target = _library_path(files)
         if not os.path.exists(target):
-            _compile(sources, target)
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            with open(target + ".lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # released on close
+                if not os.path.exists(target):  # no other process built it
+                    _compile(sources, target)
         lib = ctypes.CDLL(target)
         for name, (args, res) in _ENTRY_POINTS.items():
             fn = getattr(lib, name)

@@ -173,7 +173,10 @@ def device_profile(fn: Callable, iters: int, tries: int = 3,
     number, still the call's (``usable``).  Most events lost, or none
     recorded, is not usable: the window is taken again, up to ``tries``
     times.  ``lost_windows`` counts the windows that lost events.  With
-    ``warm`` false the first window is the first call.
+    ``warm`` false the first window is the first call.  ``collective_ms``
+    is the NCCL kernels' part of ``device_ms``: a collective's kernel runs
+    until every rank has joined, so it holds the wait for the slowest
+    rank as well as the transfer.
 
     On the H100 the profiler loses events in more windows the older the
     process: windows taken in the first two minutes of a process come
@@ -198,7 +201,10 @@ def device_profile(fn: Callable, iters: int, tries: int = 3,
         kernels, whole, usable = {}, True, True
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", 0)
-            if e.device_type == DeviceType.CUDA and us > 0:
+            # NCCL's op annotations ("nccl:all_to_all") span their kernels
+            # on the device timeline: not kernels, and counted once already
+            if (e.device_type == DeviceType.CUDA and us > 0
+                    and not e.key.startswith("nccl:")):
                 n = e.count / iters
                 r = round(n)
                 whole = whole and e.count % iters == 0
@@ -208,8 +214,11 @@ def device_profile(fn: Callable, iters: int, tries: int = 3,
         if usable:
             break
     device_ms = sum(us for us, _ in kernels.values()) / 1e3
+    collective_ms = sum(us for k, (us, _) in kernels.items()
+                        if k.startswith("nccl")) / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return dict(wall_ms=wall_ms, device_ms=device_ms,
+                collective_ms=collective_ms,
                 busy_share=device_ms / wall_ms,
                 launches=sum(n for _, n in kernels.values()),
                 kernels=[[k[:70], us, n] for k, (us, n) in top[:12]],
