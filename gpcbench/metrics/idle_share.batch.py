@@ -1,0 +1,3 @@
+"""idle_share.batch: ``gpcbench.metrics_common.idle_share``."""
+
+from gpcbench.metrics_common import idle_share as read  # noqa: F401
