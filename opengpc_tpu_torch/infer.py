@@ -68,6 +68,7 @@ from opengpc_tpu_torch.ops.fused_match import fused_sparsematch_rows
 from opengpc_tpu_torch.ops.preprocess import (CANDIDATE_MARGIN, box3,
                                               candidate_mask, require_u8,
                                               sobel3)
+from opengpc_tpu_torch.utils.timing import span
 
 _MARGIN = CANDIDATE_MARGIN
 
@@ -160,8 +161,9 @@ def _folded_key_rows(left, right, mask: FilterMask,
     independent, so a folded batch matches as its pairs do one by one."""
     keys = (_batched_key_images(left, right, mask, settings)
             if left.dim() == 3 else _key_image(left, right, mask, settings))
-    keys, m = _interior_rows(keys)
-    return keys.reshape(-1, keys.shape[-1]), keys.shape[:-1], m
+    with span("ogpc.fold"):
+        keys, m = _interior_rows(keys)
+        return keys.reshape(-1, keys.shape[-1]), keys.shape[:-1], m
 
 
 def _unfold(t, lead, m, value=0):
@@ -194,7 +196,9 @@ def _sparsematch_masked_impl(left, right, mask: FilterMask,
     buf, counts = match_epipolar_masked(None, None, None, None,
                                         settings.disp_high, key=rows,
                                         num_tests=mask.num_tests)
-    return (_unfold(buf, lead, m, MASKED_SENTINEL), _unfold(counts, lead, m))
+    with span("ogpc.unfold"):
+        return (_unfold(buf, lead, m, MASKED_SENTINEL),
+                _unfold(counts, lead, m))
 
 
 def _sparsematch_impl(left, right, mask: FilterMask,
@@ -338,17 +342,18 @@ class _Matcher(nn.Module):
                                   device=device).reshape(-1, 5))
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
-        require_u8(left)
-        require_u8(right)
-        if left.shape != right.shape or left.dim() not in (2, 3):
-            raise ValueError(f"expected matching (H, W) or (B, H, W) images, "
-                             f"got {tuple(left.shape)} and "
-                             f"{tuple(right.shape)}")
-        dev = self.tests.device
-        if left.device != dev or right.device != dev:
-            raise ValueError(f"images on {left.device}/{right.device}, "
-                             f"matcher on {dev}")
-        return self._run(left, right)
+        with span("ogpc.forward"):
+            require_u8(left)
+            require_u8(right)
+            if left.shape != right.shape or left.dim() not in (2, 3):
+                raise ValueError(
+                    f"expected matching (H, W) or (B, H, W) images, got "
+                    f"{tuple(left.shape)} and {tuple(right.shape)}")
+            dev = self.tests.device
+            if left.device != dev or right.device != dev:
+                raise ValueError(f"images on {left.device}/{right.device}, "
+                                 f"matcher on {dev}")
+            return self._run(left, right)
 
     def _run(self, left, right):
         """Pair by pair, stacked for a batch: the JAX builders' lax.map."""

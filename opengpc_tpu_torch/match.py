@@ -31,6 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from opengpc_tpu_torch.utils.timing import span
+
 SENTINEL_BASE = 0x40000000  # above any <=30-bit leaf code
 MASKED_SENTINEL = 0x7FFFFFFF
 PAD_KEY_BASE = 0x7F000000   # bitonic row padding: above every sentinel
@@ -71,32 +73,34 @@ def _sort_key_pos(key, num_tests):
     Tie order does not matter: detection only emits runs of exactly two,
     normalized by lo/hi position."""
     w2 = key.shape[1]
-    if _pack_ok(num_tests, w2):
-        pb = _pos_bits(w2)
-        pos = torch.arange(w2, dtype=torch.int32, device=key.device)
-        packed_s = torch.sort(_pack_keypos(key, pos, pb), dim=1,
-                              stable=False).values
-        return _unpack_keypos(packed_s, pb)
-    key_s, idx = torch.sort(key, dim=1, stable=False)
-    return key_s, idx.to(torch.int32)
+    with span("ogpc.sort"):
+        if _pack_ok(num_tests, w2):
+            pb = _pos_bits(w2)
+            pos = torch.arange(w2, dtype=torch.int32, device=key.device)
+            packed_s = torch.sort(_pack_keypos(key, pos, pb), dim=1,
+                                  stable=False).values
+            return _unpack_keypos(packed_s, pb)
+        key_s, idx = torch.sort(key, dim=1, stable=False)
+        return key_s, idx.to(torch.int32)
 
 
 def _detect_pairs_packed(key_s, pos_s, w, disp_high):
     """Pair detection over row-sorted keys: (keep, src_x, d) windows of
     shape (R, 2W-1)."""
-    eq = key_s[:, :-1] == key_s[:, 1:]
-    prev = F.pad(eq[:, :-1], (1, 0))
-    nxt = F.pad(eq[:, 1:], (0, 1))
-    pair = eq & ~prev & ~nxt
-    left_pos, right_pos = pos_s[:, :-1], pos_s[:, 1:]
-    # an equal (src, tar) pair may come out in either order: normalize
-    lo = torch.minimum(left_pos, right_pos)
-    hi = torch.maximum(left_pos, right_pos)
-    cross = (lo < w) & (hi >= w) & (hi < 2 * w)
-    src_x = lo
-    d = src_x - (hi - w)
-    keep = pair & cross & (d.abs() <= disp_high)
-    return keep, src_x, d
+    with span("ogpc.detect"):
+        eq = key_s[:, :-1] == key_s[:, 1:]
+        prev = F.pad(eq[:, :-1], (1, 0))
+        nxt = F.pad(eq[:, 1:], (0, 1))
+        pair = eq & ~prev & ~nxt
+        left_pos, right_pos = pos_s[:, :-1], pos_s[:, 1:]
+        # an equal (src, tar) pair may come out in either order: normalize
+        lo = torch.minimum(left_pos, right_pos)
+        hi = torch.maximum(left_pos, right_pos)
+        cross = (lo < w) & (hi >= w) & (hi < 2 * w)
+        src_x = lo
+        d = src_x - (hi - w)
+        keep = pair & cross & (d.abs() <= disp_high)
+        return keep, src_x, d
 
 
 def _masked_emit(keep, src_x, d, w, disp_high):
@@ -108,11 +112,12 @@ def _masked_emit(keep, src_x, d, w, disp_high):
     if bx + bd > 30:
         raise ValueError(
             f"masked pack needs x+d bits <= 30, got {bx}+{bd}")
-    out = torch.where(keep, (src_x << bd) | (d + disp_high),
-                      torch.full_like(src_x, MASKED_SENTINEL))
-    out = F.pad(out, (0, 1), value=MASKED_SENTINEL)
-    counts = keep.sum(dim=1, dtype=torch.int32)
-    return out, counts
+    with span("ogpc.emit"):
+        out = torch.where(keep, (src_x << bd) | (d + disp_high),
+                          torch.full_like(src_x, MASKED_SENTINEL))
+        out = F.pad(out, (0, 1), value=MASKED_SENTINEL)
+        counts = keep.sum(dim=1, dtype=torch.int32)
+        return out, counts
 
 
 def _key_from_codes(code_src, code_tar, valid_src, valid_tar):

@@ -32,6 +32,7 @@ from opengpc_tpu_torch.forest import MAX_TESTS, PATCH_HALF, FilterMask
 from opengpc_tpu_torch.ops import library
 from opengpc_tpu_torch.ops.preprocess import (CANDIDATE_MARGIN, _sobel_nums,
                                               require_u8)
+from opengpc_tpu_torch.utils.timing import span
 
 PAD = PATCH_HALF + 1       # 13-px code halo + 1-px box/Sobel halo
 MARGIN = CANDIDATE_MARGIN  # candidate interior margin
@@ -274,9 +275,10 @@ def fused_key_image(lefts: torch.Tensor, rights: torch.Tensor,
                          f"{lefts.device} and {tuple(rights.shape)} on "
                          f"{rights.device}")
     _require_kernel("fused_key_image", lefts)
-    return library.fused_key_image(lefts, rights, op_tests(mask),
-                                   int(gradient_threshold),
-                                   int(sentinel_base))
+    with span("ogpc.keys"):
+        return library.fused_key_image(lefts, rights, op_tests(mask),
+                                       int(gradient_threshold),
+                                       int(sentinel_base))
 
 
 def fused_keys(img: torch.Tensor, mask: FilterMask, gradient_threshold: int,
@@ -453,9 +455,11 @@ def fused_key_image_slab(lefts: torch.Tensor, rights: torch.Tensor,
     check_mask(mask)
     _require_kernel("fused_key_image_slab", lefts)
     batch = (-1,) + tuple(lefts.shape[-2:])
-    keys = library.fused_key_image_slab(
-        lefts.reshape(batch), rights.reshape(batch), op_tests(mask),
-        int(gradient_threshold), int(sentinel_base), int(y0), int(h_total))
+    with span("ogpc.keys"):
+        keys = library.fused_key_image_slab(
+            lefts.reshape(batch), rights.reshape(batch), op_tests(mask),
+            int(gradient_threshold), int(sentinel_base), int(y0),
+            int(h_total))
     return keys.reshape(lefts.shape[:-2] + keys.shape[-2:])
 
 

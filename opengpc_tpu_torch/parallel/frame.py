@@ -77,6 +77,7 @@ from opengpc_tpu_torch.parallel.groups import (Grid, _leaves, _Parallel,
                                                exchange_halos,
                                                neighbour_halos, split_batch,
                                                split_frame)
+from opengpc_tpu_torch.utils.timing import span
 
 CONTRACTS = ("masked", "rows", "masked-compact", "global-compact")
 
@@ -126,9 +127,10 @@ def _folded_tail(mod, keys):
             return tuple(unfold(x) for x in t)
         return t.reshape(b, sh, *t.shape[1:])
 
-    if mod.contract == "masked-compact":
-        return unfold(out[:2]) + (out[2].reshape(1),)
-    return unfold(out)
+    with span("ogpc.unfold"):
+        if mod.contract == "masked-compact":
+            return unfold(out[:2]) + (out[2].reshape(1),)
+        return unfold(out)
 
 
 def _global_send(mod, key, rank: int, n: int, h_total: int):
@@ -199,9 +201,10 @@ class _RowSharded(_Parallel):
 
     def _halos(self, both):
         (_, r), (_, nr) = self._cell()
-        if self.rows_group is None:
-            return neighbour_halos([both], 0)
-        return exchange_halos(both, self.rows_group, r, nr)
+        with span("ogpc.halo"):
+            if self.rows_group is None:
+                return neighbour_halos([both], 0)
+            return exchange_halos(both, self.rows_group, r, nr)
 
 
 class ShardedFrameSparsematch(_RowSharded):
@@ -259,25 +262,26 @@ class ShardedFrameSparsematch(_RowSharded):
         return super().shard(left, right)
 
     def forward(self, l_slab: torch.Tensor, r_slab: torch.Tensor):
-        self._check_slabs(l_slab, r_slab)
-        (_, rank), (_, n) = self._cell()
-        sh, w = l_slab.shape
-        self._check_shard(sh, w, n)
-        both = torch.stack([l_slab, r_slab])
-        top, bottom = self._halos(both)
-        key = _slab_keys(self, both, top, bottom, rank * sh, n * sh)
-        if self.contract == "global-compact":
-            send, ovf = _global_send(self, key, rank, n, n * sh)
-            recv = send
-            if self.group is not None:
-                recv = done(funcol.all_to_all_single(send, None, None,
-                                                     self.group))
-            out = _global_detect(self, recv, w, n * sh, sh)
-            return out + (any_rank(ovf, self.group),)
-        out = _epipolar_tail(self, key)
-        if self.contract == "masked-compact":
-            return out[:2] + (any_rank(out[2], self.group),)
-        return out
+        with span("ogpc.forward"):
+            self._check_slabs(l_slab, r_slab)
+            (_, rank), (_, n) = self._cell()
+            sh, w = l_slab.shape
+            self._check_shard(sh, w, n)
+            both = torch.stack([l_slab, r_slab])
+            top, bottom = self._halos(both)
+            key = _slab_keys(self, both, top, bottom, rank * sh, n * sh)
+            if self.contract == "global-compact":
+                send, ovf = _global_send(self, key, rank, n, n * sh)
+                recv = send
+                if self.group is not None:
+                    recv = done(funcol.all_to_all_single(send, None, None,
+                                                         self.group))
+                out = _global_detect(self, recv, w, n * sh, sh)
+                return out + (any_rank(ovf, self.group),)
+            out = _epipolar_tail(self, key)
+            if self.contract == "masked-compact":
+                return out[:2] + (any_rank(out[2], self.group),)
+            return out
 
     def _in_one_process(self, left, right, n: int):
         pairs = list(zip(split_frame(left, n), split_frame(right, n)))
@@ -369,17 +373,19 @@ class BatchedShardedFrameSparsematch(_RowSharded):
         return super().shard(left, right)
 
     def forward(self, l_slabs: torch.Tensor, r_slabs: torch.Tensor):
-        self._check_slabs(l_slabs, r_slabs, dims=3)
-        (_, r), (_, nr) = self._cell()
-        sh, w = l_slabs.shape[1:]
-        self._check_shard(sh, w, nr)
-        both = torch.stack([l_slabs, r_slabs])
-        top, bottom = self._halos(both)
-        out = _folded_tail(self, _slab_keys(self, both, top, bottom, r * sh,
-                                            nr * sh))
-        if self.contract == "masked-compact":
-            return out[:2] + (any_rank(out[2], self.rows_group).reshape(1),)
-        return out
+        with span("ogpc.forward"):
+            self._check_slabs(l_slabs, r_slabs, dims=3)
+            (_, r), (_, nr) = self._cell()
+            sh, w = l_slabs.shape[1:]
+            self._check_shard(sh, w, nr)
+            both = torch.stack([l_slabs, r_slabs])
+            top, bottom = self._halos(both)
+            out = _folded_tail(self, _slab_keys(self, both, top, bottom,
+                                                r * sh, nr * sh))
+            if self.contract == "masked-compact":
+                flag = any_rank(out[2], self.rows_group).reshape(1)
+                return out[:2] + (flag,)
+            return out
 
     def _in_one_process(self, left, right, n):
         n_data, n_rows = n

@@ -9,6 +9,10 @@ has them:
 * :func:`trace` — a ``torch.profiler`` capture (host and, where a CUDA
   device is present, device activity) written as a Chrome trace into a
   directory.
+* :func:`span` — the program's stage spans (``ogpc.forward``,
+  ``ogpc.keys``, ``ogpc.fold``, ``ogpc.sort``, ``ogpc.detect``,
+  ``ogpc.emit``, ``ogpc.unfold``, ``ogpc.halo``): profiler ranges while
+  a profiler runs, a shared no-op otherwise.
 
 and the card's step timers, which ``bench_torch.py`` and ``chip_smoke.py``
 share:
@@ -32,6 +36,10 @@ import contextlib
 import os
 import time
 from typing import Callable, Dict, List, Optional
+
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 class PhaseTimer:
@@ -75,7 +83,6 @@ def trace(log_dir: Optional[str] = None):
     if log_dir is None:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -85,6 +92,28 @@ def trace(log_dir: Optional[str] = None):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def span(name: str):
+    """A profiler range called ``name`` (one of the ``ogpc.*`` stages)
+    while a torch profiler runs: the profiler puts it on the clock of the
+    device's activities, so a trace charges each kernel to the stage that
+    launched it.  Otherwise, and always while ``torch.export`` or
+    ``torch.compile`` trace (a traced program never depends on whether
+    someone profiled while it was traced), one shared ``nullcontext``: a
+    span costs a check when no profiler runs.
+
+    The range is an op-scope one (``_RecordFunctionFast``, with which
+    torch's compiled code marks its calls), a ``cpu_op`` event in the
+    trace, not a ``record_function`` user annotation: the profiler copies
+    a user annotation onto the device's timeline over the kernels it
+    launched, and a reader that cannot tell that copy from a kernel (a
+    torch whose kineto events carry no activity type) would count it as
+    device work.  It also costs a tenth of one."""
+    if torch.autograd._profiler_enabled() and \
+            not torch.compiler.is_compiling():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def host_ms_per_step(step: Callable, steps: int,
@@ -107,8 +136,6 @@ def events_ms_per_step(step: Callable, steps: int,
     ``step`` on the current stream, once a repeat: device work plus
     whatever gaps the host's launches leave between kernels.  Warm up
     first: a first call may build kernels or grow the allocator's pool."""
-    import torch
-
     out = []
     for _ in range(repeats):
         start = torch.cuda.Event(enable_timing=True)
@@ -134,8 +161,6 @@ def graph_ms_per_step(step: Callable, steps: int,
     copy from host memory (capture raises on either), and each replay
     runs the kernels it launched while captured, on the tensors it held
     then."""
-    import torch
-
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -183,7 +208,6 @@ def device_profile(fn: Callable, iters: int, tries: int = 3,
     whole, one taken after seven minutes kept about half of its kernels
     whatever the host waited around the calls.  Take the windows whose
     times are reported early."""
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
