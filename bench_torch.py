@@ -72,6 +72,7 @@ KERNEL_COUNTERS = {
     "fused_sparsematch_rows": ("opengpc_tpu_torch.ops.fused_match",
                                "fused_sparsematch_rows"),
     "bitonic_sort_rows": ("opengpc_tpu_torch.ops.sort", "bitonic_sort_rows"),
+    "row_sort": ("opengpc_tpu_torch.ops.sort", "row_sort"),
 }
 
 

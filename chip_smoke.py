@@ -7,7 +7,9 @@ keys, one image or both images of a batch of pairs in one launch; slab
 keys, one slab or both slabs of a shard in one launch of the key kernel's
 slab mode; fused codes, census, bitonic row sort at every row length from 256
 to 16384 on random, equal, two-valued, sorted, reversed and real padded
-matcher rows; fused match) against its plain-PyTorch twin bit for bit,
+matcher rows; the matcher's row sort on the benchmark cells' folded key
+images and on rows of every layout up to 16384 keys; fused match) against
+its plain-PyTorch twin bit for bit,
 and the census also against the native oracle.  Then it drives every
 level-1 route of the one-call ``sparsematch`` at 436x1024: the masked
 epipolar route, the global-rows route at the library's default settings,
@@ -49,7 +51,8 @@ or the single-device module and, where the mode allows, the true
 disparity.  Early in the run (the profiler loses kernel events late in
 a long process, which the ``profiler_late`` phase at the end measures)
 it times the kernels against their twins (the bitonic
-sort also against ``torch.sort`` on the same rows, in turns), each
+and matcher row sorts also against ``torch.sort`` on the same rows, in
+turns), each
 beside its bound, the key kernel at B = 1 and 4 on the dense and sparse
 pairs and at 2160x3840, the routes per pair, the sharded module against
 the single-device one and the one-call module at levels 1-3 with CUDA
@@ -131,6 +134,15 @@ KERNELS = {  # name -> (wrapper module, source, the TPU kernel it replaces)
                      "opengpc_tpu_torch/csrc/fused_census.cu",
                      "opengpc_tpu/ops/fused.py:377"),
 }
+# the matcher's row sort (ops.sort.row_sort), beside KERNELS: the main
+# path pins its launches itself (``phase_main_path``)
+ROW_SORT = ("opengpc_tpu_torch.ops.sort", "opengpc_tpu_torch/csrc/row_sort.cu",
+            "none: XLA's lax.sort in opengpc_tpu/match.py:174")
+# the benchmark cells' row sorts: (pairs, h, w, disparity range) of
+# sintel_b32_card (13,120 folded rows of 2,048) and uhd4k_b1_card (2,134 of
+# 7,680), as gpcbench/traffic makes them
+ROW_SORT_CELLS = {"sintel_b32": (32, 436, 1024, (4, 96)),
+                  "uhd4k_b1": (1, 2160, 3840, (8, 128))}
 # the H100 SXM's device-memory rate and INT32 instruction rate (132 SMs
 # x 64 INT32 lanes x 1.98 GHz), the two sides of every kernel's bound
 HBM_BYTES_PER_S = 3.35e12
@@ -194,6 +206,19 @@ def network_ops(rows, n):
     max and two payload selects."""
     lg = n.bit_length() - 1
     return 5 * rows * n * lg * (lg + 1) // 4
+
+
+def row_sort_ops(key):
+    """Integer operations of the row sort on an (R, N) key image: 6 a
+    compare-exchange of 64-bit words in the network over each row's
+    candidates, padded to max(256, pow2 >= their count), and 8 a key to
+    classify, rank and write it."""
+    from opengpc_tpu_torch.match import SENTINEL_BASE
+
+    n = (key < SENTINEL_BASE).sum(dim=1).cpu().numpy().astype(np.int64)
+    lg = np.where(n > 256, np.ceil(np.log2(np.maximum(n, 1))), 8)
+    p = np.where(n > 0, 2 ** lg, 0)
+    return int(6 * (p * lg * (lg + 1) // 4).sum() + 8 * key.numel())
 
 
 _START = time.perf_counter()
@@ -551,9 +576,16 @@ def phase_main_path(oracle, launches):
                                for l, r in pairs]
 
     # one key-kernel launch a module call: per scene two forests, the
-    # 17-test mask, the batch of 4 and its 4 pairs one by one
+    # 17-test mask, the batch of 4 and its 4 pairs one by one; and one
+    # row-sort launch a call, none of them too wide
+    from opengpc_tpu_torch.ops.sort import row_sort
+
+    row_sort.launches = row_sort.wide_calls = 0
     counts = launches.run("main_path", drive, {"fused_keys": 16})[1]
+    sorts = dict(launches=row_sort.launches, wide_calls=row_sort.wide_calls)
     failures, report = [], {}
+    if sorts != dict(launches=16, wide_calls=0):
+        failures.append(f"row_sort: {sorts}, expected 16 launches, 0 wide")
     for (scene, f), sup in single.items():
         left, right = scenes[scene]
         cpu = sparsematch(left, right, paths[f], settings, device="cpu")
@@ -583,9 +615,11 @@ def phase_main_path(oracle, launches):
             equals_single=same, true_disparity_share=accs)
         if not (same and min(accs) > MIN_ACCURACY):
             failures.append(f"{scene}/batch4: {report[f'{scene}/batch4']}")
-    emit("main_path", launches=counts, checks=report, failures=failures)
+    emit("main_path", launches=counts, row_sort=sorts, checks=report,
+         failures=failures)
     if failures:
         raise SystemExit(f"main path failed: {failures}")
+    return sorts["launches"]
 
 
 def phase_times(smi):
@@ -801,6 +835,100 @@ def phase_sort_vs_twin(masks):
             failures.append((name, err))
     torch.cuda.synchronize()
     return finish_vs_twin("bitonic_sort_rows", cases, worst, failures)
+
+
+def row_sort_rows(rng, rows, n):
+    """(rows, n) int32 key images of every layout the row sort is held
+    to: 15 % candidates with duplicated codes among sentinels, every key
+    a candidate, only sentinels, negative candidates, and keys >=
+    SENTINEL_BASE off their column's sentinel (the row sorted whole)."""
+    from opengpc_tpu_torch.match import SENTINEL_BASE
+
+    col = np.arange(n, dtype=np.int64)
+    sent = np.tile(SENTINEL_BASE + col, (rows, 1))
+    pool = rng.integers(0, 1 << 30, max(1, n // 20))
+    codes = pool[rng.integers(0, len(pool), (rows, n))]
+    sparse = rng.random((rows, n)) < 0.15
+    odd = np.where(sparse, codes, SENTINEL_BASE + col // 2)
+    odd[:, 0] = 0x7FFFFFFF
+    kinds = {"codes": np.where(sparse, codes, sent), "dense": codes,
+             "sentinels": sent,
+             "signed": np.where(sparse, codes - (1 << 30), sent),
+             "odd": odd}
+    return {k: torch.from_numpy(v.astype(np.int32)) for k, v in kinds.items()}
+
+
+def row_sort_images(masks):
+    """The benchmark cells' folded key images (``ROW_SORT_CELLS``) on the
+    card: the benchmark generator's pairs (seed 21, density 0.15) and
+    dense ``make_pair`` pairs through the key kernel and the fold."""
+    from gpcbench.generator import make_pool
+    from opengpc_tpu_torch import InferenceSettings
+    from opengpc_tpu_torch.infer import _folded_key_rows
+    from opengpc_tpu_torch.utils import make_pair
+
+    settings = InferenceSettings(**SETTINGS_KW)
+    images = {}
+    for cell, (b, h, w, disp) in ROW_SORT_CELLS.items():
+        lefts, rights, _ = make_pool(21, b, h, w, 0.15, disp, device="cuda")
+        images[f"{cell}/generator"] = _folded_key_rows(
+            lefts, rights, masks["zero"], settings)[0]
+        pairs = [make_pair(h, w, TRUE_DISP, seed=500 + i) for i in range(b)]
+        lefts, rights = (torch.from_numpy(np.stack([p[i] for p in pairs]))
+                         .cuda() for i in (0, 1))
+        images[f"{cell}/dense"] = _folded_key_rows(
+            lefts, rights, masks["zero"], settings)[0]
+    return images
+
+
+def phase_row_sort_vs_twin(masks, images):
+    """row_sort vs its twin on the card, keys and columns bit for bit: the
+    cells' folded key images (``row_sort_images``), every layout of
+    ``row_sort_rows`` at N 130 .. 16384 (N % 4 = 0 and 2 among them) x 1,
+    7 and 410 rows; then each cell image's masked buffer and row counts
+    against ``torch.sort``'s key-value path, which the cells ran before.
+    No call of the phase is too wide."""
+    from opengpc_tpu_torch.match import (SENTINEL_BASE, _detect_pairs_packed,
+                                         _masked_emit, match_epipolar_masked)
+    from opengpc_tpu_torch.ops.sort import row_sort, row_sort_plain
+
+    rng = np.random.default_rng(21)
+    inputs = dict(images)
+    for n in (130, 256, 2046, 2048, 4100, 7680, 16384):
+        for rows in (1, 7, 410):
+            for kind, key in row_sort_rows(rng, rows, n).items():
+                inputs[f"{kind}_{rows}x{n}"] = key.cuda()
+    wide = row_sort.wide_calls
+    worst, cases, failures = 0, 0, []
+    for name, key in inputs.items():
+        got_k, got_p = row_sort(key)
+        want_k, want_p = row_sort_plain(key)
+        err = max(max_err(got_k, want_k), max_err(got_p, want_p))
+        worst, cases = max(worst, err), cases + 1
+        if err:
+            failures.append((name, err))
+    masked = {}
+    for name, key in images.items():
+        w = key.shape[1] // 2
+        got = match_epipolar_masked(None, None, None, None, 128, key=key,
+                                    num_tests=masks["zero"].num_tests)
+        key_s, idx = torch.sort(key, dim=1, stable=False)
+        keep, src_x, d = _detect_pairs_packed(key_s, idx.to(torch.int32), w,
+                                              128)
+        want = _masked_emit(keep, src_x, d, w, 128)
+        same = all(torch.equal(g, t) for g, t in zip(got, want))
+        masked[name] = dict(rows=list(key.shape), supports=int(got[1].sum()),
+                            candidate_share=float(
+                                (key < SENTINEL_BASE).float().mean()),
+                            equals_torch_sort=same)
+        if not same:
+            failures.append((f"{name}/masked", "differs from torch.sort's"))
+    torch.cuda.synchronize()
+    if row_sort.wide_calls != wide:
+        failures.append(("wide_calls", row_sort.wide_calls - wide))
+    emit("row_sort_masked", cells=masked, launches=row_sort.launches,
+         wide_calls=row_sort.wide_calls)
+    return finish_vs_twin("row_sort", cases, worst, failures)
 
 
 def phase_fused_match_vs_twin(masks):
@@ -1279,9 +1407,11 @@ def phase_key_times(smi, masks):
     emit("key_kernel_times", card=smi, forest="defaultZeroForest", **cases)
 
 
-def phase_new_times(smi, masks):
+def phase_new_times(smi, masks, images):
     """The code kernel (both images of a pair in one launch, 32 tests), the
-    bitonic sort (against torch.sort on the matcher rows) and the fused
+    bitonic sort (against torch.sort on the matcher rows), the matcher's
+    row sort on the cells' generator images (``row_sort_images``; against
+    torch.sort, the key-value sort it replaced) and the fused
     match (at 436x1024 and 1080x1920, beside the row-sort kernel alone on
     the same padded rows) against their twins, and ms
     per pair of the global-rows route, the flat route (32 tests) and the
@@ -1297,7 +1427,8 @@ def phase_new_times(smi, masks):
     from opengpc_tpu_torch.match import PAD_KEY_BASE, SENTINEL_BASE
     from opengpc_tpu_torch.ops.sort import (bitonic_sort_rows,
                                             bitonic_sort_rows_plain,
-                                            padded_row_length)
+                                            padded_row_length, row_sort,
+                                            row_sort_plain)
     from opengpc_tpu_torch.utils import make_pair
 
     left, right = make_pair(H, W, TRUE_DISP)
@@ -1322,6 +1453,14 @@ def phase_new_times(smi, masks):
         library=lambda: torch.sort(key, dim=1, stable=False)),
         16 * rows * n, network_ops(rows, n))
     times["bitonic_sort_rows"]["rows"] = [rows, n]
+    for name, image in (("row_sort", "sintel_b32/generator"),
+                        ("row_sort_uhd4k", "uhd4k_b1/generator")):
+        cell = images[image]
+        times[name] = with_bound(kernel_vs_plain_times(
+            lambda: row_sort(cell), lambda: row_sort_plain(cell), 200, 20,
+            library=lambda: torch.sort(cell, dim=1, stable=False)),
+            12 * cell.numel(), row_sort_ops(cell))
+        times[name]["rows"] = list(cell.shape)
     big = [torch.from_numpy(a).cuda()
            for a in make_pair(1080, 1920, TRUE_DISP)]
     for name, (lm, rm) in (("fused_sparsematch_rows", (l_d, r_d)),
@@ -3540,8 +3679,9 @@ def phase_custom_ops(masks):
     """``torch.library.opcheck`` on every ``ogpc::`` op with CUDA inputs:
     the schema, the autograd registration, the fake against the card's
     outputs and a trace with dynamic shapes, on the dense 436x1024 pair
-    and an odd 37x130 one, with the zero and tau forests where the op
-    takes tests.  Any failure fails the run."""
+    and an odd 37x130 one (the row sort on their zero-forest key images),
+    with the zero and tau forests where the op takes tests.  Any failure
+    fails the run."""
     import torch.nn.functional as F
 
     from opengpc_tpu_torch.match import SENTINEL_BASE
@@ -3578,6 +3718,9 @@ def phase_custom_ops(masks):
                            device="cuda").expand(h, -1).contiguous()
         check(f"fused_census/{sname}", "fused_census", (ld,))
         check(f"bitonic_sort_rows/{sname}", "bitonic_sort_rows", (key, pay))
+        check(f"row_sort/{sname}", "row_sort", (library.fused_key_image(
+            ld[None], rd[None], op_tests(masks["zero"]), 5,
+            SENTINEL_BASE)[0],))
         for fname in ("zero", "tau"):
             t = op_tests(masks[fname])
             for name, args in (
@@ -4927,9 +5070,11 @@ def main(argv=None):
     with tempfile.TemporaryDirectory() as td:
         paths = forest_paths(td)
         masks = kernel_masks(paths)
+        images = row_sort_images(masks)
         errs = {"fused_keys": phase_kernel_vs_twin(),
                 "fused_codes": phase_codes_vs_twin(masks),
                 "bitonic_sort_rows": phase_sort_vs_twin(masks),
+                "row_sort": phase_row_sort_vs_twin(masks, images),
                 "fused_sparsematch_rows": phase_fused_match_vs_twin(masks),
                 "fused_keys_slab": phase_slab_vs_twin(masks)}
         oracle = build_oracle()
@@ -4937,7 +5082,7 @@ def main(argv=None):
         errs["fused_census"] = phase_census_vs_twin(oracle)
         phase_custom_ops(masks)
         launches = Launches()
-        phase_main_path(oracle, launches)
+        row_sort_launches = phase_main_path(oracle, launches)
         phase_routes(oracle, paths, launches)
         phase_variants(oracle, paths, masks, launches)
         phase_descriptors(paths, masks, launches)
@@ -4949,7 +5094,8 @@ def main(argv=None):
         # kernel events late in a long one (``profiler_late`` shows it)
         times = {"fused_keys": phase_times(smi)}
         phase_key_times(smi, masks)
-        times.update(phase_new_times(smi, masks))
+        times.update(phase_new_times(smi, masks, images))
+        del images
         times.update(phase_slab_times(smi, masks))
         phase_pyramid_times(smi, masks)
         examples = start_examples(td)
@@ -4970,20 +5116,22 @@ def main(argv=None):
         phase_densify(smi)
         phase_multi_device(td, oracle, paths, launches, train_ref, smi)
         phase_profiler_late(smi)
-    missing = [k for k, n in launches.total.items() if n == 0]
+    totals = dict(launches.total, row_sort=row_sort_launches)
+    missing = [k for k, n in totals.items() if n == 0]
     if missing:
         raise SystemExit(f"no path launched {missing}")
+    sources = dict(KERNELS, row_sort=ROW_SORT)
     print(smi, flush=True)
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": KERNELS[name][1],
-        "replaces": KERNELS[name][2], "launches": launches.total[name],
+        "name": name, "route": "cuda", "source": sources[name][1],
+        "replaces": sources[name][2], "launches": totals[name],
         "max_abs_err": errs[name], "ms": times[name]["ms"],
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"],
         "bound_by": times[name]["bound_by"],
         "library_ms": times[name]["library_ms"],
         "ms_source": times[name]["ms_source"],
-        "graph_ms": times[name]["graph_ms"]["ms"]} for name in KERNELS]}),
+        "graph_ms": times[name]["graph_ms"]["ms"]} for name in sources]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,8 +17,11 @@ by the packed support, as in the JAX package), the segmented global rows
 (``match_correspondences``), and the chunk-compacted low-density variants of
 the masked and global contracts (``match_epipolar_masked_compact``,
 ``match_global_rows_compact``) with their overflow flag.  The sorts are
-``torch.sort``, the counterpart of XLA's ``lax.sort``; the bitonic row
-sort of ``ops.sort`` is the ``sort_impl="bitonic"`` alternative.
+``torch.sort``, the counterpart of XLA's ``lax.sort``, except the
+epipolar row sort of the masked, row and sentinel-packed flat matchers
+(``_sort_key_pos``), which is ``ops.sort.row_sort`` up to 16,384 columns;
+the bitonic row sort of ``ops.sort`` is the ``sort_impl="bitonic"``
+alternative.
 
 The host matchers ``match_reference_quirk`` and ``match_hashmatch`` are
 numpy copies of the JAX package's: the reference's exact sweep and its
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from opengpc_tpu_torch.ops.sort import MAX_N, row_sort
 from opengpc_tpu_torch.utils.timing import span
 
 SENTINEL_BASE = 0x40000000  # above any <=30-bit leaf code
@@ -66,14 +70,24 @@ def _unpack_keypos(packed, pb):
 
 def _sort_key_pos(key, num_tests):
     """The matcher's row sort of an (R, 2W) key image whose positions are
-    the column indices: one operand with pos packed into the key when
+    the column indices.  Returns int32 (key_s, pos_s).
+
+    Rows of at most ``ops.sort.MAX_N`` keys take ``ops.sort.row_sort``
+    (the kernel of ``csrc/row_sort.cu`` on the card, a stable sort on the
+    CPU): (key, pos) order, which is also the packed sort's.  Wider rows
+    take ``torch.sort``: one operand with pos packed into the key when
     ``_pack_ok`` holds, otherwise (key, pos) by an unstable sort whose
-    returned indices are the positions.  Returns int32 (key_s, pos_s).
+    returned indices are the positions; ``row_sort.wide_calls`` counts
+    such calls on the card.
 
     Tie order does not matter: detection only emits runs of exactly two,
     normalized by lo/hi position."""
     w2 = key.shape[1]
     with span("ogpc.sort"):
+        if w2 <= MAX_N:
+            return row_sort(key)
+        if key.is_cuda:
+            row_sort.wide_calls += 1
         if _pack_ok(num_tests, w2):
             pb = _pos_bits(w2)
             pos = torch.arange(w2, dtype=torch.int32, device=key.device)
@@ -284,7 +298,7 @@ def _match_epipolar_packed(code_src, code_tar, valid_src, valid_tar,
     """The sentinel-packed flat epipolar matcher, from codes and
     candidates or from a prebuilt (H, 2W) key image (``key=``, as
     ``ops.fused.fused_keys`` emits).  ``sort_impl="auto"`` sorts rows with
-    ``torch.sort``; ``"bitonic"`` pads them to N2 = max(256, pow2 >= 2W)
+    ``_sort_key_pos``; ``"bitonic"`` pads them to N2 = max(256, pow2 >= 2W)
     with unique keys ``PAD_KEY_BASE + pos`` and runs the bitonic row sort
     kernel (``ops.sort.bitonic_sort_rows``)."""
     if sort_impl not in ("auto", "bitonic"):

@@ -40,6 +40,7 @@ _ENTRY_POINTS = {
     "ogpc_fused_codes": ("ppppppiiipiip", "i"),
     "ogpc_fused_census": ("ppiip", "i"),
     "ogpc_bitonic_sort_rows": ("ppppiip", "i"),
+    "ogpc_row_sort": ("pppiip", "i"),
     "ogpc_fused_sparsematch_rows": ("pppppiiipiiip", "i"),
     "ogpc_cuda_error_string": ("i", "s"),
 }

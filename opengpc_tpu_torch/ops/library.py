@@ -256,6 +256,30 @@ def _(key, payload):
     return torch.empty_like(key), torch.empty_like(payload)
 
 
+# -- the matcher's row sort (csrc/row_sort.cu) -------------------------------
+
+
+@_op("row_sort")
+def row_sort(key: Tensor) -> tuple[Tensor, Tensor]:
+    """Each row of the (R, N) int32 ``key`` sorted by (key, column): int32
+    (keys, columns)."""
+    from opengpc_tpu_torch.ops import sort
+
+    return sort._row_sort_launch(key)
+
+
+@row_sort.register_kernel("cpu")
+def _(key):
+    from opengpc_tpu_torch.ops import sort
+
+    return sort.row_sort_plain(key)
+
+
+@row_sort.register_fake
+def _(key):
+    return torch.empty_like(key), torch.empty_like(key)
+
+
 # -- the fused match (csrc/fused_match.cu) -----------------------------------
 
 
@@ -291,4 +315,5 @@ OPS = {"fused_key_image": fused_key_image,
        "fused_keys": fused_keys, "fused_keys_slab": fused_keys_slab,
        "fused_codes": fused_codes, "fused_codes_pair": fused_codes_pair,
        "fused_census": fused_census, "bitonic_sort_rows": bitonic_sort_rows,
+       "row_sort": row_sort,
        "fused_sparsematch_rows": fused_sparsematch_rows}

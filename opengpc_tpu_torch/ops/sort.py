@@ -1,5 +1,15 @@
-"""Per-row bitonic sort with a payload: the port of
+"""The row sorts: the matcher's candidate row sort, and the per-row
+bitonic sort with a payload, the port of
 ``opengpc_tpu.ops.sort.bitonic_sort_rows``.
+
+``row_sort`` sorts each row of an (R, N) int32 key image by (key, column)
+and returns int32 (keys, columns), the order a stable sort gives.  It
+calls the custom op ``ogpc::row_sort``, which launches the kernel of
+``csrc/row_sort.cu`` on a CUDA tensor (raising on any failure) and runs
+``row_sort_plain``, a stable ``torch.sort``, on a CPU tensor.
+``row_sort.launches`` counts kernel launches; ``row_sort.wide_calls``
+counts the CUDA row sorts of ``match._sort_key_pos`` that took
+``torch.sort`` instead, their rows being wider than ``MAX_N``.
 
 ``bitonic_sort_rows`` calls the custom op ``ogpc::bitonic_sort_rows``
 (``ops.library``), which launches the kernel of ``csrc/bitonic_sort.cu``
@@ -17,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-MIN_N, MAX_N = 256, 16384  # the kernel holds one row in shared memory
+MIN_N, MAX_N = 256, 16384  # each kernel holds one row in shared memory
 
 
 def padded_row_length(w: int) -> int:
@@ -111,3 +121,60 @@ def bitonic_sort_rows(key: torch.Tensor, payload: torch.Tensor):
 
 
 bitonic_sort_rows.launches = 0
+
+
+def _check_rows(key: torch.Tensor) -> None:
+    if key.dim() != 2:
+        raise ValueError(f"expected an (R, N) key image, got shape "
+                         f"{tuple(key.shape)}")
+    if key.dtype != torch.int32:
+        raise ValueError(f"expected an int32 key image, got {key.dtype}")
+    if key.shape[1] > MAX_N:
+        raise ValueError(f"row length {key.shape[1]} exceeds the row sort's "
+                         f"{MAX_N}: a dense row must fit a block's shared "
+                         "memory")
+    if key.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"row_sort: no kernel for {key.device} tensors")
+
+
+def row_sort_plain(key: torch.Tensor):
+    """Plain-PyTorch twin: a stable sort, which leaves equal keys in column
+    order."""
+    _check_rows(key)
+    key_s, idx = torch.sort(key, dim=1, stable=True)
+    return key_s, idx.to(torch.int32)
+
+
+def _row_sort_launch(key: torch.Tensor):
+    """One launch of the row-sort kernel on an (R, N) int32 CUDA key image:
+    the CUDA implementation of ``ogpc::row_sort`` (``ops.library``).  An
+    empty image launches nothing."""
+    from opengpc_tpu_torch.ops._build import check_launch, load_library
+
+    key = key.contiguous()
+    key_s, pos_s = torch.empty_like(key), torch.empty_like(key)
+    if key.numel() == 0:
+        return key_s, pos_s
+    lib = load_library()
+    with torch.cuda.device(key.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.ogpc_row_sort(key.data_ptr(), key_s.data_ptr(),
+                               pos_s.data_ptr(), key.shape[0], key.shape[1],
+                               stream)
+    check_launch("row_sort", rc)
+    row_sort.launches += 1
+    return key_s, pos_s
+
+
+def row_sort(key: torch.Tensor):
+    """Each row of the (R, N) int32 ``key`` sorted by (key, column), N at
+    most ``MAX_N``: int32 (keys, columns).  The op ``ogpc::row_sort``: the
+    kernel on CUDA tensors, the plain version on CPU ones."""
+    from opengpc_tpu_torch.ops import library
+
+    _check_rows(key)
+    return library.row_sort(key)
+
+
+row_sort.launches = 0
+row_sort.wide_calls = 0

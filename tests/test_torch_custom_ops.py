@@ -18,6 +18,7 @@ import torch
 
 import opengpc_tpu
 import opengpc_tpu.forest as jforest
+import opengpc_tpu.match as jmatch
 from opengpc_tpu.match import SENTINEL_BASE as J_SENTINEL_BASE
 from opengpc_tpu.ops import fused as jfused
 from opengpc_tpu.ops import fused_match as jfm
@@ -41,7 +42,8 @@ TESTS_OPS = ("fused_key_image", "fused_key_image_slab", "fused_keys",
              "fused_sparsematch_rows")
 CASES = ([(op, shape, forest) for op in TESTS_OPS for shape in SHAPES
           for forest in ("defaultZeroForest.txt", "defaultTauForest.txt")]
-         + [(op, shape, None) for op in ("fused_census", "bitonic_sort_rows")
+         + [(op, shape, None) for op in ("fused_census", "bitonic_sort_rows",
+                                         "row_sort")
             for shape in SHAPES])
 
 
@@ -83,6 +85,17 @@ def case(op, shape, forest):
         tk, tp = torch.from_numpy(key), torch.from_numpy(pay)
         return ((tk, tp), tsort.bitonic_sort_rows_plain(tk, tp),
                 jsort.bitonic_sort_rows(key, pay, interpret=True))
+    if op == "row_sort":
+        # a key image of 15 % candidates with 8-bit codes (many equal):
+        # JAX's packed row sort gives the same (key, column) order
+        w2 = 2 * w
+        key = np.where(rng.random((h, w2)) < 0.15,
+                       rng.integers(0, 256, (h, w2)),
+                       SENTINEL_BASE + np.arange(w2)).astype(np.int32)
+        pos = np.broadcast_to(np.arange(w2, dtype=np.int32), key.shape)
+        return ((torch.from_numpy(key),),
+                tsort.row_sort_plain(torch.from_numpy(key)),
+                jmatch._sort_key_pos(key, pos, w2, 8))
     jm = jforest.make_filter_mask(jforest.load_forest(
         os.path.join(FORESTS, forest)))
     tm = tmask(forest)
@@ -151,7 +164,7 @@ def test_opcheck(op, shape, forest):
     args, _, _ = case(op, shape, forest)
     counters = (tfused.fused_keys, tfused.fused_keys_slab, tfused.fused_codes,
                 tfused.fused_census, tsort.bitonic_sort_rows,
-                tfm.fused_sparsematch_rows)
+                tsort.row_sort, tfm.fused_sparsematch_rows)
     result = torch.library.opcheck(library.OPS[op], args)
     assert result and set(result.values()) == {"SUCCESS"}, result
     assert [c.launches for c in counters] == [0] * len(counters)
@@ -203,17 +216,19 @@ def test_wrappers_refuse_meta_tensors():
             lambda: tfused.fused_codes_pair(img, img, tm, THR),
             lambda: tfused.fused_census(img),
             lambda: tsort.bitonic_sort_rows(key, key),
+            lambda: tsort.row_sort(key),
             lambda: tfm.fused_sparsematch_rows(img, img, tm, THR, 8)):
         with pytest.raises(ValueError, match="no kernel"):
             call()
 
 
 def test_ops_registered_with_int_list_tests():
-    """The nine ops are in ``torch.ops.ogpc``; the ones that take the
+    """The ten ops are in ``torch.ops.ogpc``; the ones that take the
     forest take it as an ``int[]`` (T * 5 host ints, a constant of an
     exported graph), and none mutates its arguments."""
     assert sorted(library.OPS) == sorted(TESTS_OPS + ("fused_census",
-                                                      "bitonic_sort_rows"))
+                                                      "bitonic_sort_rows",
+                                                      "row_sort"))
     for name in library.OPS:
         schema = getattr(torch.ops.ogpc, name).default._schema
         args = {a.name: str(a.type) for a in schema.arguments}
