@@ -160,7 +160,8 @@ class Run:
         with self.split("inputs"):
             self.lefts, self.rights, _ = generator.make_pool(
                 seed, tr["pool_pairs"], cfg["height"], cfg["width"],
-                tr["density"], tr["disparity"], self.device)
+                tr["density"], tr["disparity"], self.device,
+                vertical=tr.get("vertical"))
             self.calls = self.entry.prepare(self.lefts, self.rights)
             _sync(self.device)
 
@@ -238,19 +239,24 @@ class Run:
 
     # after the window ----------------------------------------------------
     def key_least_s(self, batches) -> list:
-        """The least seconds of each traced call's key launch, from its
-        shapes and the candidates of the rows it keys."""
-        pairs, rows_read, rows_out, y0, f0 = self.entry.key_launch()
+        """The least seconds of each traced call's key launches, summed
+        over the launches of a call (``entry.key_launch()``: one
+        ``(pairs, rows read, rows written, first row, first pair)`` a
+        launch), each from its shapes and the candidates of the rows it
+        keys."""
         thr, bsz = self.config["gradient_threshold"], self.traffic["batch"]
         tests = len(gpc.parse_forest(open(self.config["forest_path"]).read()))
         rows = sum(torch.cat([roofline.candidate_rows(imgs[i:i + 4], thr)
                               for i in range(0, len(imgs), 4)])
                    for imgs in (self.lefts, self.rights))
-        cand = rows[:, y0:y0 + rows_out]
-        least = [roofline.least_s(
-            pairs, rows_read, rows_out, self.config["width"],
-            int(cand[b * bsz + f0:b * bsz + f0 + pairs].sum()), tests)[0]
-            for b in range(len(self.calls))]
+        least = [0.0] * len(self.calls)
+        for pairs, rows_read, rows_out, y0, f0 in self.entry.key_launch():
+            cand = rows[:, y0:y0 + rows_out]
+            for b in range(len(self.calls)):
+                least[b] += roofline.least_s(
+                    pairs, rows_read, rows_out, self.config["width"],
+                    int(cand[b * bsz + f0:b * bsz + f0 + pairs].sum()),
+                    tests)[0]
         return [least[b] for b in batches]
 
     def compare(self, samples) -> dict:
@@ -271,10 +277,9 @@ class Run:
             p = b * self.traffic["batch"] + j
             lefts = self.lefts[p:p + 1].cpu().numpy()
             rights = self.rights[p:p + 1].cpu().numpy()
-            buf, counts = host[i]
-            check.add(readings, check.compare(
-                buf[j:j + 1], counts[j:j + 1], lefts, rights, tests,
-                self.config))
+            buf, counts = check.take(host[i], slice(j, j + 1))
+            check.add(readings, check.compare(buf, counts, lefts, rights,
+                                              tests, self.config))
         return readings
 
 
@@ -306,6 +311,7 @@ def run(name, config, traffic, seed, seconds, trace_on, device, ranks,
     total = int(w.total.item())
     if summary is not None:
         summary["key_least_s"] = sum(r.key_least_s(w.batches))
+        summary["key_launches_per_call"] = len(r.entry.key_launch())
         summary["pairs"] = w.pairs
         print("trace_summary " + json.dumps(
             {k: v for k, v in summary.items()

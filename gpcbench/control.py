@@ -8,10 +8,10 @@ Then, for each of ``--seeds`` seeds, it makes that seed's pool, runs a
 short window of the cell's own traffic and compares its sampled calls with
 the reference, as a run does: the lower readings.  For each of
 ``--control-seeds`` further seeds it runs the window again and puts each
-control of ``gpcbench.check.control_outputs`` (the reference with one
-guarantee broken) in the program's place for the sampled calls: the upper
-readings.  One JSON line a reading on standard output.  The benchmark's
-runs never run this.
+control of the configuration's matching mode (``gpcbench.check.CONTROLS``
+and ``control_outputs``: the reference with one guarantee broken) in the
+program's place for the sampled calls: the upper readings.  One JSON line
+a reading on standard output.  The benchmark's runs never run this.
 """
 
 from __future__ import annotations
@@ -21,9 +21,6 @@ import json
 import os
 import sys
 import time
-
-CONTROLS = ("drop_test", "first_of_runs")
-
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser()
@@ -86,7 +83,7 @@ def main(argv=None) -> int:
         w.samples = None
         if ranks.rank != 0:
             continue
-        for kind in CONTROLS:
+        for kind in check.CONTROLS[cfg["epipolar_mode"]]:
             readings = {}
             for p in picked:
                 lefts = r.lefts[p:p + 1].cpu().numpy()

@@ -37,10 +37,10 @@ class Masked:
         return out[1]
 
     def key_launch(self):
-        """(pairs, rows read, rows written, first row, first pair of the
-        batch) of the call's one key launch."""
+        """[(pairs, rows read, rows written, first row, first pair of the
+        batch)] of the call's one key launch."""
         h = self.cfg["height"]
-        return self.batch, h, h, 0, 0
+        return [(self.batch, h, h, 0, 0)]
 
     @staticmethod
     def gather(out):

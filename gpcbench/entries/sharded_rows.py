@@ -57,8 +57,8 @@ class ShardedRows:
 
     def key_launch(self):
         from opengpc_tpu_torch.ops.fused import PAD
-        return (self.bd, self.sh + 2 * PAD, self.sh, self.r * self.sh,
-                self.d * self.bd)
+        return [(self.bd, self.sh + 2 * PAD, self.sh, self.r * self.sh,
+                 self.d * self.bd)]
 
     def gather(self, out):
         """Every rank's blocks joined into the call's whole (buf, counts)

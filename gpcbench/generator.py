@@ -5,6 +5,9 @@ The semantics of a sparse Sintel-like pair: a smooth background whose
 Sobel response stays under the gradient threshold, 24 x 24 textured
 patches covering ``density`` of the scene, and one constant disparity per
 pair drawn from the traffic's range, so that ``left(x) == right(x - d)``.
+A traffic with a ``vertical`` range also gives each pair a constant
+vertical offset, a rectified camera's residual error of a row or so:
+``left(y, x) == right(y - dy, x - d)``.
 
 Every random number comes from a counter-based hash of (seed, stream,
 element index) computed with int64 tensor operations, so the same seed
@@ -24,7 +27,7 @@ PATCH = 24
 _MUL1, _MUL2 = 0x7FEB352D, 0x5BD1E995  # both < 2**31: products stay < 2**63
 
 # stream ids of the draws
-_DISP, _BG, _TEX, _CELL = 1, 2, 3, 4
+_DISP, _BG, _TEX, _CELL, _DY = 1, 2, 3, 4, 5
 
 
 def _mix(x: int) -> int:
@@ -78,6 +81,14 @@ def disparities(seed: int, pairs: int, lo: int, hi: int, device="cpu"):
     return lo + u % (hi - lo + 1)
 
 
+def vertical_offsets(seed: int, pairs: int, lo: int, hi: int,
+                     device="cpu"):
+    """The (pairs,) int64 constant vertical offsets in [lo, hi], from a
+    stream of their own."""
+    u = uniform_u32(seed, _DY, (pairs,), device)
+    return lo + u % (hi - lo + 1)
+
+
 def _scenes(seed, first, n, h, ws, density, device):
     """(n, h, ws) uint8 scenes of pool pairs [first, first + n)."""
     off = first * h * ws
@@ -99,26 +110,41 @@ def _scenes(seed, first, n, h, ws, density, device):
 
 
 def make_pool(seed: int, pairs: int, h: int, w: int, density: float,
-              disparity, device="cpu", chunk: int = 4):
+              disparity, device="cpu", chunk: int = 4, vertical=None):
     """(lefts, rights, ds): two (pairs, h, w) uint8 tensors on ``device``
     and the (pairs,) int64 disparities, ``disparity = (lo, hi)``.  Pair p
     is the window [0, w) of its scene on the left and [d_p, d_p + w) on
-    the right.  ``chunk`` pairs are made at a time, which bounds the
+    the right.  With ``vertical = (lo, hi)`` the right window is also
+    shifted by dy_p rows (:func:`vertical_offsets`), in a scene tall
+    enough for every offset; without it the pool is the same as with
+    ``(0, 0)``.  ``chunk`` pairs are made at a time, which bounds the
     temporaries without changing a value."""
     lo, hi = (int(v) for v in disparity)
     if not 0 <= lo <= hi:
         raise ValueError(f"disparity range must satisfy 0 <= lo <= hi, got "
                          f"{disparity}")
+    vlo, vhi = (int(v) for v in (vertical or (0, 0)))
+    if vlo > vhi:
+        raise ValueError(f"vertical range must satisfy lo <= hi, got "
+                         f"{vertical}")
     ds = disparities(seed, pairs, lo, hi, device)
     ws = w + hi
+    y0 = max(0, -vlo)  # the left window's first row in the scene
+    hs = y0 + h + max(0, vhi)
+    if hs != h:
+        dys = vertical_offsets(seed, pairs, vlo, vhi, device)
     lefts = torch.empty((pairs, h, w), dtype=torch.uint8, device=device)
     rights = torch.empty_like(lefts)
     cols = torch.arange(w, device=device)
+    rows = torch.arange(h, device=device)
     for first in range(0, pairs, chunk):
         n = min(chunk, pairs - first)
-        scene = _scenes(seed, first, n, h, ws, density, device)
-        lefts[first:first + n] = scene[:, :, :w]
+        scene = _scenes(seed, first, n, hs, ws, density, device)
+        lefts[first:first + n] = scene[:, y0:y0 + h, :w]
         idx = (cols[None, :] + ds[first:first + n, None])[:, None, :]
+        if hs != h:
+            ridx = (rows[None, :] + y0 + dys[first:first + n, None])
+            scene = torch.gather(scene, 1, ridx[:, :, None].expand(n, h, ws))
         rights[first:first + n] = torch.gather(scene, 2,
                                                idx.expand(n, h, w))
     return lefts, rights, ds

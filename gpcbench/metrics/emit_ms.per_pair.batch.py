@@ -1,0 +1,3 @@
+"""emit_ms.per_pair.batch: ``gpcbench.spans.emit_ms``."""
+
+from gpcbench.spans import emit_ms as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""fold_ms.per_pair.b1: ``gpcbench.spans.fold_ms``."""
+
+from gpcbench.spans import fold_ms as read  # noqa: F401

@@ -21,10 +21,12 @@ def key_roofline(ctx):
     """The key kernel's least time (``gpcbench.roofline``: bytes at 3.35
     TB/s or operations at the integer peak, from the shapes and the
     candidates of the rows it keys) over its profiler time: 100 x (least
-    seconds a traced call) / (profiler seconds a key launch), mean over
-    the ranks; None where no key launch was seen."""
-    per = [100 * (s["key_least_s"] / s["calls"]) / (s["key_s"]
-                                                    / s["key_launches"])
+    seconds a traced call, over all its key launches) / (profiler seconds
+    a key launch x key launches a call), mean over the ranks; None where
+    no key launch was seen.  The same work reads the same share whether a
+    call keys its batch in one launch or pair by pair."""
+    per = [100 * (s["key_least_s"] / s["calls"])
+           / (s["key_s"] / s["key_launches"] * s["key_launches_per_call"])
            for s in ctx.ranks if s["key_launches"] and s["calls"]]
     return sum(per) / len(per) if len(per) == len(ctx.ranks) else None
 

@@ -1,4 +1,4 @@
-"""The plain NumPy reference of openGPC's sparse epipolar matching.
+"""The plain NumPy reference of openGPC's sparse matching, both modes.
 
 Written from the method's description (Wang et al., "The Global Patch
 Collider", CVPR 2016) and openGPC's ``lib/gpc/inference.hpp`` and
@@ -18,10 +18,21 @@ Collider", CVPR 2016) and openGPC's ``lib/gpc/inference.hpp`` and
 * epipolar matching: in each row, a code that occurs exactly twice among
   the candidates of both images, once in the left image at x_l and once
   in the right at x_r, is a support (x_l, y, d = x_l - x_r), kept when
-  |d| <= disp_high.
+  |d| <= disp_high;
+* global matching (``epipolar_mode`` false, openGPC's default): within
+  one pair, a code that occurs exactly twice among the candidates of both
+  whole images, once in the left at (x_l, y_l) and once in the right at
+  (x_r, y_r), is a support (x_l, y_l, d = x_l - x_r), kept when |d| <=
+  disp_high and |y_l - y_r| <= vertical_tolerance.
 
-Imports NumPy only.  ``drop_tests`` and ``first_of_runs`` break one
-guarantee each; they exist for the benchmark's control (``gpcbench.check``).
+Both modes keep |d| <= disp_high where openGPC's ``rectifiedMatch``
+(``inference.hpp:384-391``) keeps 0 <= d <= disp_high: the benchmark holds
+the port to its own documented contract, which keeps negative
+disparities too.
+
+Imports NumPy only.  ``drop_tests``, ``first_of_runs`` and a vertical
+tolerance of 0 break one guarantee each; they exist for the benchmark's
+controls (``gpcbench.check``).
 """
 
 from __future__ import annotations
@@ -116,6 +127,53 @@ def codes_at(imgs: np.ndarray, tests: np.ndarray, idx):
     return code
 
 
+def _candidate_codes(lefts, rights, tests, threshold: int):
+    """Every candidate of both images of a (B, h, w) batch of uint8 pairs:
+    (b, y, x, code, side) int64 arrays, side 0 the left image, each side
+    in raster order."""
+    lefts, rights = np.asarray(lefts), np.asarray(rights)
+    if lefts.ndim == 2:
+        lefts, rights = lefts[None], rights[None]
+    parts = []
+    for side, imgs in enumerate((lefts, rights)):
+        idx = np.nonzero(candidates(imgs, threshold))
+        code = codes_at(imgs, tests, idx)
+        parts.append(idx + (code, np.full(len(code), side, np.int64)))
+    return tuple(np.concatenate(p).astype(np.int64) for p in zip(*parts))
+
+
+def _unique_pairs(group, code, side, first_of_runs: bool):
+    """(i, j): the left and the right candidate of each code that occurs
+    exactly twice within its ``group``, once on each side; indices into
+    the arrays as given.
+
+    ``first_of_runs`` breaks the uniqueness guarantee: a code that occurs
+    more than once in its group then pairs its first left and first right
+    occurrence (first in the order given)."""
+    key = (group << 32) | code
+    order = np.lexsort((side, key))  # by key, left before right, stable
+    key, s = key[order], side[order]
+    n = len(key)
+    if n < 2:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    start = np.ones(n, bool)
+    start[1:] = key[1:] != key[:-1]
+    run_id = np.cumsum(start) - 1
+    run_len = np.bincount(run_id)[run_id]
+    if first_of_runs:
+        # a run's lefts come first: its first left and its first right
+        i = np.nonzero(start & (s == 0) & (run_len >= 2))[0]
+        n_left = np.bincount(run_id, weights=(s == 0))[run_id[i]].astype(
+            np.int64)
+        has_right = n_left < run_len[i]
+        i, j = i[has_right], (i + n_left)[has_right]
+    else:
+        i = np.nonzero(start & (run_len == 2))[0]
+        i = i[(s[i] == 0) & (s[i + 1] == 1)]
+        j = i + 1
+    return order[i], order[j]
+
+
 def epipolar_supports(lefts, rights, tests, threshold: int, disp_high: int,
                       first_of_runs: bool = False):
     """The supports of a (B, h, w) batch of uint8 pairs: four int64 arrays
@@ -124,43 +182,28 @@ def epipolar_supports(lefts, rights, tests, threshold: int, disp_high: int,
     ``first_of_runs`` breaks the uniqueness guarantee: a code that occurs
     more than once in a row then pairs its first left and first right
     occurrence."""
-    lefts, rights = np.asarray(lefts), np.asarray(rights)
-    if lefts.ndim == 2:
-        lefts, rights = lefts[None], rights[None]
-    bsz, h, w = lefts.shape
-    sides = []
-    for side, imgs in enumerate((lefts, rights)):
-        idx = np.nonzero(candidates(imgs, threshold))
-        code = codes_at(imgs, tests, idx)
-        row = idx[0] * h + idx[1]
-        sides.append((row, code, idx[2], np.full(len(row), side, np.int8)))
-    row, code, xs, side = (np.concatenate(p) for p in zip(*sides))
-    key = (row << 32) | code
-    order = np.lexsort((side, key))  # by key, left before right
-    key, xs, side, row = key[order], xs[order], side[order], row[order]
-    n = len(key)
-    if n < 2:
-        return tuple(np.zeros(0, np.int64) for _ in range(4))
-    start = np.ones(n, bool)
-    start[1:] = key[1:] != key[:-1]
-    run_id = np.cumsum(start) - 1
-    run_len = np.bincount(run_id)[run_id]
-    if first_of_runs:
-        # a run's lefts come first: its first left and its first right
-        i = np.nonzero(start & (side == 0) & (run_len >= 2))[0]
-        n_left = np.bincount(run_id, weights=(side == 0))[run_id[i]].astype(
-            np.int64)
-        has_right = n_left < run_len[i]
-        i, j = i[has_right], (i + n_left)[has_right]
-    else:
-        i = np.nonzero(start & (run_len == 2))[0]
-        i = i[(side[i] == 0) & (side[i + 1] == 1)]
-        j = i + 1
-    d = xs[i] - xs[j]
+    b, y, x, code, side = _candidate_codes(lefts, rights, tests, threshold)
+    h = np.asarray(lefts).shape[-2]
+    i, j = _unique_pairs(b * h + y, code, side, first_of_runs)
+    d = x[i] - x[j]
     keep = np.abs(d) <= disp_high
     i, d = i[keep], d[keep]
-    r = row[i]
-    return r // h, r % h, xs[i], d
+    return b[i], y[i], x[i], d
+
+
+def global_supports(lefts, rights, tests, threshold: int, disp_high: int,
+                    vertical_tolerance: int, first_of_runs: bool = False):
+    """The global-mode supports of a (B, h, w) batch of uint8 pairs: four
+    int64 arrays (b, y, x, d), y and x the left image's, ordered by (b,
+    code).  A code pairs within its pair's two whole images;
+    ``first_of_runs`` as in :func:`epipolar_supports`, over the pair."""
+    b, y, x, code, side = _candidate_codes(lefts, rights, tests, threshold)
+    i, j = _unique_pairs(b, code, side, first_of_runs)
+    d = x[i] - x[j]
+    keep = (np.abs(d) <= disp_high) & (np.abs(y[i] - y[j])
+                                       <= vertical_tolerance)
+    i, d = i[keep], d[keep]
+    return b[i], y[i], x[i], d
 
 
 def drop_tests(tests: np.ndarray, n: int = 1) -> np.ndarray:

@@ -167,7 +167,10 @@ def _launch(args, world: int) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def main(argv=None, log=None) -> int:
+    """The run; ``log`` takes what the run prints to standard error
+    before its checks (the set-up split, the traced summary, the window's
+    readings)."""
     args = _parser().parse_args(argv)
     from gpcbench import registry
     cache_dirs()
@@ -211,7 +214,7 @@ def main(argv=None) -> int:
     try:
         result, bad = cell.run(args.workload, cfg, tr, args.seed,
                                args.seconds, bool(args.trace), device, ranks,
-                               split, t0, bench)
+                               split, t0, bench, log=log or sys.stderr)
         if result is not None:
             result["device"]["power_limit"] = _power_limit(device.index)
             result = dict(result, checks=result.pop("checks"))

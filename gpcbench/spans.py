@@ -1,30 +1,12 @@
-"""The program's stage spans in a traced window, and the per-layer numbers
-that read them.
+"""The per-layer numbers that read the program's stage spans, and a
+command that prints them with the span table a call.
 
-While a profiler runs, the port marks its stages with ``ogpc.*`` ranges
-(``opengpc_tpu_torch.utils.timing.span``, ``cpu_op`` events of the
-trace): ``ogpc.forward`` around a call of a matcher and, inside it,
-``ogpc.keys``, ``ogpc.fold``, ``ogpc.sort``, ``ogpc.detect``,
-``ogpc.emit``, ``ogpc.unfold`` and, on the row-sharded modules,
-``ogpc.halo``.  :func:`summarize` reduces one rank's kineto events to a
-table, by span name:
-
-* ``calls``, ``host_s``, and ``self_host_s``: ``host_s`` less the time
-  its child spans cover;
-* ``device_s`` and ``launches``: every kernel, copy and fill of the window
-  charged to the innermost span whose host interval holds its launch (the
-  launch found through the correlation id, as ``trace.reduce`` finds the
-  match layer's); ``all_launches`` counts them over the span and every
-  span inside it;
-* ``idle_s``: each idle gap of the device charged to the innermost span
-  the host was in at the gap's middle.
-
-``trace.reduce`` does not join this table to its summary, so no cell's
-result line carries the readers below.  This module's command runs a
-one-card cell traced as ``gpcbench.run --trace 1`` does, with the table
-joined to each summary as ``spans`` (``trace_summary`` on standard error
-prints it), and prints as the last line of standard output the table a
-call and the readings::
+``gpcbench.trace.reduce`` carries each rank's table of the program's
+``ogpc.*`` spans as ``spans`` (``trace.summarize_spans``), so the readers
+below reach every traced run's result line through their one-line files
+under ``metrics/``.  This module's command runs a one-card cell traced as
+``gpcbench.run --trace 1`` does and prints as the last line of standard
+output the table a call and the readings::
 
     python3 -m gpcbench.spans --workload NAME --seed N --seconds S
 """
@@ -32,124 +14,11 @@ call and the readings::
 from __future__ import annotations
 
 import argparse
-import bisect
-import contextlib
 import json
 import sys
 import types
 
-from gpcbench import trace
-
-PREFIX = "ogpc."
 STAGES = ("sort", "detect", "emit", "fold")
-
-
-def _pieces(spans):
-    """Nested (start, end) host intervals, by index, as the pieces of time
-    each covers innermost: sorted [(start, end, index)], and each span's
-    parent index (None at the top).  A child that overruns its parent is
-    cut at the parent's end."""
-    pieces, stack, parent, t = [], [], [None] * len(spans), None
-    for i in sorted(range(len(spans)), key=lambda i: (spans[i][0],
-                                                      -spans[i][1])):
-        s, e = spans[i]
-        while stack and stack[-1][0] <= s:
-            end, j = stack.pop()
-            if end > t:
-                pieces.append((t, end, j))
-                t = end
-        if stack:
-            if s > t:
-                pieces.append((t, s, stack[-1][1]))
-            parent[i] = stack[-1][1]
-            e = min(e, stack[-1][0])
-        stack.append((e, i))
-        t = s
-    while stack:
-        end, j = stack.pop()
-        if end > t:
-            pieces.append((t, end, j))
-            t = end
-    return pieces, parent
-
-
-def summarize(events) -> dict:
-    """{span name: seconds and counts} of one rank's traced window from
-    the profiler's kineto events; empty where the program marked no
-    span."""
-    window, spans, names, launches, device = None, [], [], {}, []
-    for e in events:
-        kind, name = trace._kind(e), e.name()
-        s, d = e.start_ns(), e.duration_ns()
-        if kind in trace.DEVICE_KINDS:
-            device.append((s, s + d, e.correlation_id()))
-        elif kind in trace.LAUNCH_KINDS:
-            launches[e.correlation_id()] = s
-        elif kind == "user_annotation" and name == "window":
-            window = (s, s + d)
-        elif kind == "cpu_op" and name.startswith(PREFIX):
-            spans.append((s, s + d))
-            names.append(name)
-    if window is None:
-        raise RuntimeError("the traced window has no 'window' span")
-    out = {}
-    for n, (s, e) in zip(names, spans):
-        row = out.setdefault(n, dict(calls=0, host_s=0.0, self_host_s=0.0,
-                                     device_s=0.0, launches=0,
-                                     all_launches=0, idle_s=0.0))
-        row["calls"] += 1
-        row["host_s"] += (e - s) / 1e9
-    pieces, parent = _pieces(spans)
-    starts = [p[0] for p in pieces]
-
-    def innermost(t):
-        i = bisect.bisect_right(starts, t) - 1
-        return pieces[i][2] if i >= 0 and t < pieces[i][1] else None
-
-    for s, e, i in pieces:
-        out[names[i]]["self_host_s"] += (e - s) / 1e9
-    w0, w1 = window
-    device = [x for x in device if x[0] >= w0 and x[1] <= w1]
-    for s, e, corr in device:
-        t = launches.get(corr)
-        i = innermost(t) if t is not None else None
-        if i is None:
-            continue
-        out[names[i]]["device_s"] += (e - s) / 1e9
-        out[names[i]]["launches"] += 1
-        while i is not None:
-            out[names[i]]["all_launches"] += 1
-            i = parent[i]
-    _, gaps = trace._union([(s, e) for s, e, _ in device])
-    if device:
-        gaps = ([(w0, min(s for s, _, _ in device))] + gaps
-                + [(max(e for _, e, _ in device), w1)])
-    else:
-        gaps = [(w0, w1)]
-    for gs, ge in gaps:
-        i = innermost((gs + ge) // 2) if ge > gs else None
-        if i is not None:
-            out[names[i]]["idle_s"] += (ge - gs) / 1e9
-    return out
-
-
-@contextlib.contextmanager
-def joined():
-    """Within the block ``trace.reduce`` adds :func:`summarize`'s table to
-    its summary as ``spans``; yields the list of the summaries it made."""
-    base, made = trace.reduce, []
-
-    def reduce(events, key_op="fused_key_image"):
-        summary = base(events, key_op)
-        summary["spans"] = summarize(events)
-        made.append(summary)
-        return summary
-
-    trace.reduce = reduce
-    try:
-        yield made
-    finally:
-        trace.reduce = base
 
 
 # --- readers: ``read(ctx)`` over the ranks' summaries, as metrics_common's
@@ -161,8 +30,10 @@ def _tables(ctx):
 
 
 def _stage_ms(ctx, *names):
+    """Device ms a pair under the spans ``names``, summed over the ranks;
+    None where no rank's program marked any of them."""
     tables = _tables(ctx)
-    if tables is None:
+    if tables is None or not any(n in t for t in tables for n in names):
         return None
     total = sum(t[n]["device_s"] for t in tables for n in names if n in t)
     return total * 1e3 / ctx.ranks[0]["pairs"]
@@ -170,7 +41,8 @@ def _stage_ms(ctx, *names):
 
 def sort_ms(ctx):
     """Device ms a pair launched under ``ogpc.sort`` (``match._sort_key_pos``:
-    pack, ``torch.sort``, unpack), summed over the ranks."""
+    the row-sort kernel, ``torch.sort`` past 16,384 columns), summed over
+    the ranks."""
     return _stage_ms(ctx, "ogpc.sort")
 
 
@@ -220,6 +92,20 @@ def per_call(summary) -> dict:
             for name, row in summary["spans"].items()}
 
 
+class _Tee:
+    """A stream that writes through to ``out`` and keeps what it wrote."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, text):
+        self.text.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
 def main(argv=None) -> int:
     from gpcbench import metrics_common, registry, run
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -230,9 +116,12 @@ def main(argv=None) -> int:
     if registry.cell(registry.benchmark(), args.workload)["chips"] != 1:
         print("gpcbench.spans runs one-card cells", file=sys.stderr)
         return 2
-    with joined() as made:
-        rc = run.main(["--workload", args.workload, "--seed", str(args.seed),
-                       "--seconds", str(args.seconds), "--trace", "1"])
+    log = _Tee(sys.stderr)
+    rc = run.main(["--workload", args.workload, "--seed", str(args.seed),
+                   "--seconds", str(args.seconds), "--trace", "1"], log=log)
+    made = [json.loads(ln.split(" ", 1)[1])
+            for ln in "".join(log.text).splitlines()
+            if ln.startswith("trace_summary ")]
     if rc or not made:
         return rc or 1
     ctx = types.SimpleNamespace(ranks=made)

@@ -1,11 +1,15 @@
 """The device input generator: the same seed gives the same pool on any
-device, the textured share and the disparities follow the traffic."""
+device, the textured share, the disparities and the vertical offsets
+follow the traffic, and a traffic without ``vertical`` gives the pools it
+gave before the key existed."""
+
+import hashlib
 
 import numpy as np
 import pytest
 import torch
 
-from gpcbench import generator
+from gpcbench import generator, registry
 from gpcbench.reference import gpc
 
 BIG = 2**31 + 2**40 + 12345  # past 32 signed bits, as the driver's seeds are
@@ -48,6 +52,47 @@ def test_disparity_follows_traffic(lo, hi):
     for left, right, d in zip(lefts, rights, ds.tolist()):
         # left(x) == right(x - d): the right image is the scene shifted
         assert torch.equal(left[:, d:], right[:, :right.shape[1] - d])
+
+
+# sha256 of lefts, rights and ds of each cell's traffic (its density and
+# disparity range, its pool cut to ``pairs`` pairs of h x w) as the
+# generator made them before the ``vertical`` key existed
+POOLS = {
+    ("b32_inflight2_card", 3_000_000_017, 8, 96, 256):
+        "eb01b47664607b2a8da8036fff97a64d598309d9e4a24027ebcc0083df08149a",
+    ("b32_inflight2_card", 2**33 + 9, 8, 96, 256):
+        "a2953ef576f5cb269618963c0da910b8b03774dc1595d96cf68db468a9e68753",
+    ("b1_inflight1_card", 3_000_000_017, 3, 120, 320):
+        "f2160051a28839fb93e2c6567bf028c72dfa116cf45ad1d939a3bee2138a162d",
+    ("b1_inflight1_card", 2**33 + 9, 3, 120, 320):
+        "e23c98cc215a56ee3345c316f03c7b8a152a447e2c81c9462a3978c900056c7e",
+}
+
+
+@pytest.mark.parametrize("key", sorted(POOLS, key=str))
+def test_pools_without_vertical_are_unchanged(key):
+    name, seed, pairs, h, w = key
+    tr = registry.traffic(name)
+    assert "vertical" not in tr
+    pool = generator.make_pool(seed, pairs, h, w, tr["density"],
+                               tr["disparity"], vertical=tr.get("vertical"))
+    digest = hashlib.sha256(b"".join(t.numpy().tobytes() for t in pool))
+    assert digest.hexdigest() == POOLS[key]
+
+
+@pytest.mark.parametrize("lo,hi", [(-1, 1), (0, 2), (-3, -1)])
+def test_vertical_offset_follows_traffic(lo, hi):
+    lefts, rights, ds = generator.make_pool(BIG, 12, 40, 200, 0.15, (4, 96),
+                                            vertical=(lo, hi))
+    dys = generator.vertical_offsets(BIG, 12, lo, hi)
+    assert dys.min() >= lo and dys.max() <= hi and len(set(dys.tolist())) > 1
+    h, w = lefts.shape[1:]
+    for left, right, d, dy in zip(lefts, rights, ds.tolist(), dys.tolist()):
+        # left(y, x) == right(y - dy, x - d)
+        a, b = max(0, dy), max(0, -dy)
+        assert torch.equal(left[a:h - b, d:], right[b:h - a, :w - d])
+    # the disparities are drawn as without the key
+    assert torch.equal(ds, generator.disparities(BIG, 12, 4, 96))
 
 
 def test_background_is_below_threshold():

@@ -198,6 +198,28 @@ def test_roofline_counts_follow_the_shapes():
     assert roofline.INT32_OPS_PER_S == pytest.approx(16.73e12, rel=1e-3)
 
 
+def test_key_least_s_sums_the_launches_of_a_call(monkeypatch):
+    cfg, tr = small("sintel_b32_card", batch=4, pool_pairs=8)
+    r = cell.Run(cfg, tr, "cpu", cell.One(), cell.Split())
+    r.setup(2**33 + 11)
+    assert r.entry.key_launch() == [(4, 96, 96, 0, 0)]
+    batches = [0, 1, 1]
+    one = r.key_least_s(batches)
+    # the global entry keys pair by pair: B launches of one pair each
+    per_pair = registry.entry("global_rows").GlobalRows.key_launch(
+        types.SimpleNamespace(cfg=cfg, batch=4))
+    assert per_pair == [(1, 96, 96, 0, p) for p in range(4)]
+    monkeypatch.setattr(r.entry, "key_launch", lambda: per_pair)
+    assert r.key_least_s(batches) == pytest.approx(one, rel=1e-12)
+    # and the reader gives the same work the same share
+    read = registry.metric("fused_keys_roofline.batch").read
+    base = dict(key_least_s=sum(one), calls=3, key_s=6e-5)
+    ranks = [dict(base, key_launches=3, key_launches_per_call=1)]
+    split = [dict(base, key_launches=12, key_launches_per_call=4)]
+    assert read(types.SimpleNamespace(ranks=split)) == pytest.approx(
+        read(types.SimpleNamespace(ranks=ranks)), rel=1e-12)
+
+
 def test_candidate_rows_match_the_reference():
     imgs, _, _ = generator.make_pool(41, 3, 80, 200, 0.2, (4, 96))
     want = gpc.candidates(imgs.numpy(), 5).sum(-1)

@@ -18,6 +18,14 @@ launch to the span it was made in:
 * busy time is the union of all kernel, copy and fill intervals inside
   the window, and each idle gap is charged to the span the host was in
   at the gap's middle (``other`` outside every span).
+
+The summary also carries the program's own stage spans as ``spans``
+(:func:`summarize_spans`): while a profiler runs, the port marks its
+stages with ``ogpc.*`` ranges (``opengpc_tpu_torch.utils.timing.span``,
+``cpu_op`` events of the trace): ``ogpc.forward`` around a call of a
+matcher and, inside it, ``ogpc.keys``, ``ogpc.fold``, ``ogpc.sort``,
+``ogpc.detect``, ``ogpc.emit``, ``ogpc.unfold`` and, on the row-sharded
+modules, ``ogpc.halo``.  The readers of ``gpcbench.spans`` read them.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_KINDS = ("cuda_runtime", "cuda_driver")
 HOST_SPANS = ("enqueue", "consume", "wait", "control")
 SPAN_NAMES = HOST_SPANS + ("window",)
+SPAN_PREFIX = "ogpc."  # the program's stage spans
 TOP = 10
 
 
@@ -77,14 +86,115 @@ def _kind(e) -> str:
             return "gpu_memcpy"
         if name.startswith("Memset"):
             return "gpu_memset"
-        if name in SPAN_NAMES or name.startswith("nccl:"):
+        if name in SPAN_NAMES or name.startswith(("nccl:", SPAN_PREFIX)):
             return "gpu_user_annotation"
         return "kernel"
     if name in SPAN_NAMES:
         return "user_annotation"
+    if name.startswith(SPAN_PREFIX):
+        return "cpu_op"
     if name.startswith("cu") and e.correlation_id():
         return "cuda_runtime"
     return "cpu_op"
+
+
+def _pieces(spans):
+    """Nested (start, end) host intervals, by index, as the pieces of time
+    each covers innermost: sorted [(start, end, index)], and each span's
+    parent index (None at the top).  A child that overruns its parent is
+    cut at the parent's end."""
+    pieces, stack, parent, t = [], [], [None] * len(spans), None
+    for i in sorted(range(len(spans)), key=lambda i: (spans[i][0],
+                                                      -spans[i][1])):
+        s, e = spans[i]
+        while stack and stack[-1][0] <= s:
+            end, j = stack.pop()
+            if end > t:
+                pieces.append((t, end, j))
+                t = end
+        if stack:
+            if s > t:
+                pieces.append((t, s, stack[-1][1]))
+            parent[i] = stack[-1][1]
+            e = min(e, stack[-1][0])
+        stack.append((e, i))
+        t = s
+    while stack:
+        end, j = stack.pop()
+        if end > t:
+            pieces.append((t, end, j))
+            t = end
+    return pieces, parent
+
+
+def summarize_spans(events) -> dict:
+    """{span name: seconds and counts} of the program's ``ogpc.*`` spans
+    in one rank's traced window, from the profiler's kineto events; empty
+    where the program marked no span:
+
+    * ``calls``, ``host_s``, and ``self_host_s``: ``host_s`` less the time
+      its child spans cover;
+    * ``device_s`` and ``launches``: every kernel, copy and fill of the
+      window charged to the innermost span whose host interval holds its
+      launch (found through the correlation id, as :func:`reduce` finds
+      the match layer's); ``all_launches`` counts them over the span and
+      every span inside it;
+    * ``idle_s``: each idle gap of the device charged to the innermost
+      span the host was in at the gap's middle."""
+    window, spans, names, launches, device = None, [], [], {}, []
+    for e in events:
+        kind, name = _kind(e), e.name()
+        s, d = e.start_ns(), e.duration_ns()
+        if kind in DEVICE_KINDS:
+            device.append((s, s + d, e.correlation_id()))
+        elif kind in LAUNCH_KINDS:
+            launches[e.correlation_id()] = s
+        elif kind == "user_annotation" and name == "window":
+            window = (s, s + d)
+        elif kind == "cpu_op" and name.startswith(SPAN_PREFIX):
+            spans.append((s, s + d))
+            names.append(name)
+    if window is None:
+        raise RuntimeError("the traced window has no 'window' span")
+    out = {}
+    for n, (s, e) in zip(names, spans):
+        row = out.setdefault(n, dict(calls=0, host_s=0.0, self_host_s=0.0,
+                                     device_s=0.0, launches=0,
+                                     all_launches=0, idle_s=0.0))
+        row["calls"] += 1
+        row["host_s"] += (e - s) / 1e9
+    pieces, parent = _pieces(spans)
+    starts = [p[0] for p in pieces]
+
+    def innermost(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return pieces[i][2] if i >= 0 and t < pieces[i][1] else None
+
+    for s, e, i in pieces:
+        out[names[i]]["self_host_s"] += (e - s) / 1e9
+    w0, w1 = window
+    device = [x for x in device if x[0] >= w0 and x[1] <= w1]
+    for s, e, corr in device:
+        t = launches.get(corr)
+        i = innermost(t) if t is not None else None
+        if i is None:
+            continue
+        out[names[i]]["device_s"] += (e - s) / 1e9
+        out[names[i]]["launches"] += 1
+        while i is not None:
+            out[names[i]]["all_launches"] += 1
+            i = parent[i]
+    _, gaps = _union([(s, e) for s, e, _ in device])
+    if device:
+        gaps = ([(w0, min(s for s, _, _ in device))] + gaps
+                + [(max(e for _, e, _ in device), w1)])
+    else:
+        gaps = [(w0, w1)]
+    for gs, ge in gaps:
+        i = innermost((gs + ge) // 2) if ge > gs else None
+        if i is not None:
+            out[names[i]]["idle_s"] += (ge - gs) / 1e9
+    return out
 
 
 def reduce(events, key_op: str = "fused_key_image") -> dict:
@@ -169,7 +279,8 @@ def reduce(events, key_op: str = "fused_key_image") -> dict:
         match_s=match_ns / 1e9, nccl_s=nccl_ns / 1e9,
         launches_seen=len(launches), kinds=kinds,
         device_ops={k: v / 1e9 for k, v in ops.items()},
-        idle_by_host={k: v / 1e9 for k, v in idle.items()})
+        idle_by_host={k: v / 1e9 for k, v in idle.items()},
+        spans=summarize_spans(events))
 
 
 def top(d: dict, n: int = TOP, width: int = 64):
