@@ -1012,9 +1012,9 @@ def route_cases():
          codes, True),
         ("flat/global/32-tests", InferenceSettings(capacity=cap), "tests32",
          "flat", codes, False),
-        ("flat/global/disp_high-1024",
+        ("global-rows/disp_high-1024",
          InferenceSettings(disp_high=1024, capacity=cap),
-         "defaultZeroForest", "flat", codes, False),
+         "defaultZeroForest", "global-rows", keys, False),
         ("flat/epipolar/disp_high-2^20",
          InferenceSettings(disp_high=1 << 20, capacity=cap, **SETTINGS_KW),
          "defaultZeroForest", "flat", keys, False),
@@ -4205,8 +4205,8 @@ def pyramid_keys(xs, ys, ds, lv):
 
 def md4_frame_cases(frames, paths):
     """(shape, forest, ``sharded_cases`` case) of the row-sharded frame at
-    each shape, but the global contract where its (y, x, d) key does not
-    pack (the builder refuses it there: 2160x3840)."""
+    each shape, but the global contract where its (y, x) key does not
+    fit 30 bits (the builder refuses it there)."""
     from opengpc_tpu_torch.infer import _global_rows_ok
 
     out = []
@@ -4604,7 +4604,7 @@ def md4_times(c):
             "sharded_masked_forward": lambda: masked(ls, rs),
             "sharded_masked_run_whole": lambda: masked.run_whole(left,
                                                                  right)}
-        # the global contract where its (y, x, d) key packs (not at 4K)
+        # the global contract where its (y, x) key fits 30 bits
         glob = None
         if _global_rows_ok(zero, (fh, fw), lib):
             glob = par.build_sharded_frame_sparsematch(

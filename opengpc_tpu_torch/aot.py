@@ -104,8 +104,8 @@ def _module_for(contract: str, mask, settings: InferenceSettings, shape,
             raise ValueError(f"contract {contract!r} needs "
                              "epipolar_mode=False")
         if not _global_rows_ok(mask, hw, settings):
-            raise ValueError(f"contract {contract!r} has no packable key "
-                             f"for shape {tuple(shape)}")
+            raise ValueError(f"contract {contract!r} has no packable "
+                             f"(y, x) key for shape {tuple(shape)}")
         if contract == "global-compact":
             return build_sparsematch_global_compact(mask, settings, device)
         return build_sparsematch_global_rows(mask, settings, device)

@@ -1185,7 +1185,8 @@ def _run_sequence(args, forest, settings, dev, launch) -> int:
                     # or error out, never downgrade to the capacity-bounded
                     # flat pipeline the user did not ask for.  Eligibility
                     # is the contract's own rule: the global contracts need
-                    # packable (y, x, d) keys
+                    # (y, x) in 30 bits (the messages keep the JAX CLI's
+                    # words)
                     if args.contract in ("global-rows", "global-compact"):
                         ok = _global_rows_ok(fmask, left.shape, settings)
                         keyname = "(y, x, d)"

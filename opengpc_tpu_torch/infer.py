@@ -7,7 +7,8 @@ settings, as in ``opengpc_tpu.infer``:
 * masked (epipolar, <= 30 tests, 30-bit (x, d) pack):
   key image (fused key kernel) -> interior rows [13, H-13) -> row sort,
   pair detection, masked emit -> host decode (``masked_supports_to_numpy``);
-* global rows (global mode, <= 30 tests, 30-bit (y, x, d) pack):
+* global rows (global mode, <= 30 tests, (y, x) in 30 bits, 4K frames
+  included):
   key image -> interior rows -> one flat sort for global uniqueness ->
   segmented pack (``match.match_global_rows``) -> host assembly
   (``global_row_supports_to_numpy``);
@@ -98,12 +99,13 @@ def _rows_ok(mask: FilterMask, shape, settings: InferenceSettings) -> bool:
 
 
 def _global_rows_ok(mask: FilterMask, shape, settings: InferenceSettings) -> bool:
-    """Global-rows eligibility: sentinel-packable codes and the (y, x, d)
-    pack fitting 30 bits."""
+    """Eligibility of the segmented global contracts (global rows, global
+    compact, their sharded frame, the CLI and AOT): sentinel-packable codes
+    and (y, x) fitting 30 bits, the key their segments sort.  The JAX
+    package also asks the (y, x, d) pack to fit 30 bits."""
     h, w = shape
     return (_packed_ok(mask, shape)
-            and _bits(h - 1) + _bits(w - 1) + _bits(2 * settings.disp_high)
-            <= 30)
+            and _bits(h - 1) + _bits(w - 1) <= 30)
 
 
 def _interior_rows(key):
@@ -243,9 +245,11 @@ def _sparsematch_global_rows_impl(left, right, mask: FilterMask,
         raise ValueError("global row-form output is for global mode")
     if not _global_rows_ok(mask, tuple(left.shape), settings):
         raise ValueError(
-            "global row-form output needs <=30-test forests and a 30-bit "
-            "(y, x, d) pack; use build_sparsematch")
-    key, m = _interior_rows(_key_image(left, right, mask, settings))
+            "global row-form output needs <=30-test forests and (y, x) in "
+            "30 bits; use build_sparsematch")
+    key = _key_image(left, right, mask, settings)
+    with span("ogpc.fold"):
+        key, m = _interior_rows(key)
     return match_global_rows(key, left.shape[1], settings.disp_high,
                              settings.vertical_tolerance, y_offset=m)
 
@@ -297,8 +301,8 @@ def _sparsematch_global_compact_impl(left, right, mask: FilterMask,
                          "build_sparsematch_masked_compact for epipolar")
     if not _global_rows_ok(mask, tuple(left.shape), settings):
         raise ValueError(
-            "global compact needs <=30-test forests and packable (y, x, d) "
-            "keys; use build_sparsematch")
+            "global compact needs <=30-test forests and (y, x) in 30 bits; "
+            "use build_sparsematch")
     key, m = _interior_rows(_key_image(left, right, mask, settings))
     return match_global_rows_compact(
         key, left.shape[1], settings.disp_high, settings.vertical_tolerance,
@@ -381,9 +385,18 @@ class Sparsematch(_Matcher):
 
 class SparsematchGlobalRows(_Matcher):
     """The global-mode segmented matcher: ``((xs, ys, ds), counts)``;
-    assemble one pair with :func:`global_row_supports_to_numpy`."""
+    assemble one pair with :func:`global_row_supports_to_numpy`.  A batch
+    runs pair by pair; a batch of one returns its pair's tensors as views
+    with a leading axis, with no stack copy."""
 
     _pair = staticmethod(_sparsematch_global_rows_impl)
+
+    def _run(self, left, right):
+        if left.dim() == 3 and left.shape[0] == 1:
+            (xs, ys, ds), counts = self._pair(left[0], right[0], self.mask,
+                                              self.settings)
+            return (xs[None], ys[None], ds[None]), counts[None]
+        return super()._run(left, right)
 
 
 class SparsematchRows(_Matcher):
@@ -455,8 +468,9 @@ def build_sparsematch_global_rows(forest_or_mask, settings: InferenceSettings,
                                   device="cuda") -> SparsematchGlobalRows:
     """The global-mode matcher with segmented row-form output as an
     ``nn.Module`` on ``device``: the same support set as the flat matcher
-    in global mode, without its compaction sort.  Needs <= 30 tests and a
-    30-bit (y, x, d) pack."""
+    in global mode, with no capacity and without its compaction sort.
+    Needs <= 30 tests and (y, x) in 30 bits (4K frames included): each
+    segment sorts the (y, x) key on the row-sort kernel."""
     return SparsematchGlobalRows(_as_mask(forest_or_mask), settings,
                                  torch.device(device))
 
@@ -728,11 +742,17 @@ def _pair_of(out, i):
 
 def route(mask: FilterMask, shape, settings: InferenceSettings,
           levels: int = 1) -> str:
-    """The one-call route of an (H, W) frame, chosen as the JAX package
-    chooses: "masked", "global-rows" or "flat" at one level; with ``levels
-    > 1`` "pyramid-rows" (every level on the row-form matcher) or
-    "pyramid-flat" (the flat fallback: global mode or unpackable dedup
-    keys)."""
+    """The one-call route of an (H, W) frame: "masked", "global-rows" or
+    "flat" at one level; with ``levels > 1`` "pyramid-rows" (every level
+    on the row-form matcher) or "pyramid-flat" (the flat fallback: global
+    mode or unpackable dedup keys).
+
+    The choice is the JAX package's except in global mode where the (y,
+    x, d) pack is past 30 bits (1080 x 1920 and 4K frames at dispHigh
+    128, or a wide dispHigh): the JAX package takes the flat route there,
+    with its capacity, and the port the global-rows route, whose segments
+    sort the (y, x) key alone.  The flat route stays the fallback for 31-
+    and 32-test forests."""
     if levels > 1:
         from opengpc_tpu_torch.pyramid import _rows_eligible
 
@@ -787,9 +807,10 @@ def sparsematch(left, right, forest_or_mask,
 
     >>> supports = sparsematch("left.png", "right.png", "forest.txt")
 
-    The route is the JAX package's: the masked contract in epipolar mode
-    when it applies, the global-rows contract in global mode when it
-    applies, and the flat contract otherwise (more than 30 tests, or a
+    The route (:func:`route`): the masked contract in epipolar mode when
+    it applies, the global-rows contract in global mode when it applies
+    (<= 30 tests; at any frame the key kernel takes, 4K included), and the
+    flat contract otherwise (more than 30 tests, or an epipolar (x, d)
     pack wider than 30 bits).  The flat route raises ``ValueError`` when a
     pair has more supports than ``settings.capacity``.
 

@@ -510,15 +510,19 @@ def match_global_rows(key_img, w: int, disp_high: int,
     """Global unique-collision matching with segmented row-form output.
 
     ``key_img`` is an (H, 2W) sentinel-packed key image.  One flat sort of
-    all its keys finds the globally unique collisions; the kept supports,
-    packed as ``((y << bx | x) << bd) | (d + disp_high)``, are then sorted
-    within R = ``num_rows`` (default H) segments of the sorted order.
-    Returns ((xs, ys, ds) (R, C) int32, counts (R,)): segment r holds
-    (xs[r, :c], ys[r, :c], ds[r, :c]) with c = counts[r].  ``y_offset`` is
-    the row of ``key_img``'s first row in the full image."""
+    all its keys finds the globally unique collisions; the kept supports
+    are then sorted by their ``(y << bx) | x`` key within R = ``num_rows``
+    (default H) segments of the sorted order.  A source pixel pairs at
+    most once, so that key orders a segment as the JAX package's
+    ``((y << bx | x) << bd) | (d + disp_high)`` pack does, and d follows
+    by position: the same buffers wherever the pack fits 30 bits, and no
+    bound on d past it (2160 x 3840 at dispHigh 128 takes 12 + 12 + 9
+    bits).  Returns ((xs, ys, ds) (R, C) int32, counts (R,)): segment r
+    holds (xs[r, :c], ys[r, :c], ds[r, :c]) with c = counts[r], in (y, x)
+    order.  ``y_offset`` is the row of ``key_img``'s first row in the full
+    image; y and x have to fit 30 bits."""
     h, w2 = _check_global_key(key_img, w)
-    pos = torch.arange(h * w2, dtype=torch.int32, device=key_img.device)
-    return _global_rows_core(key_img.reshape(-1), pos, w, w2, h, disp_high,
+    return _global_rows_core(key_img.reshape(-1), None, w, w2, h, disp_high,
                              vertical_tolerance, num_rows, y_offset)
 
 
@@ -532,45 +536,64 @@ def _check_global_key(key_img, w):
 def _global_rows_core(key, pos, w, w2, h, disp_high, vertical_tolerance,
                       num_rows, y_offset):
     """The segmented global contract over flat ``key``s with their
-    ``pos`` payload: one flat sort of (key, pos) finds the globally unique
-    collisions, and a segmented row sort packs the (R, C) output.  A ``pos``
+    ``pos`` payload (None: the flat positions, the sort's own indices):
+    one flat sort of (key, pos) finds the globally unique collisions, and
+    a segmented row sort of the (y, x) key, below SENTINEL_BASE, with the
+    other slots on their columns' sentinels (the row-sort kernel's layout,
+    up to MAX_N slots a segment) packs the (R, C) output.  A ``pos``
     decodes as (row, col) of the original (h, w2) key image via
     divmod(w2); entries whose keys are unique (pads, sentinels) are never
     emitted, so their pos may be anything."""
-    bx, by, bd = _bits(w - 1), _bits(h - 1 + y_offset), _bits(2 * disp_high)
-    if by + bx + bd > 30:
-        raise ValueError(f"global row-form pack needs y+x+d bits <= 30, got "
-                         f"{by}+{bx}+{bd}; use match_global")
+    bx, by = _bits(w - 1), _bits(h - 1 + y_offset)
+    if by + bx > 30:
+        raise ValueError(f"global row-form key needs y+x bits <= 30, got "
+                         f"{by}+{bx}; use match_global")
     n = key.shape[0]
-    key_s, pos_s = _sort_with(key, pos)
-    eq = key_s[:-1] == key_s[1:]
-    pair = eq & ~F.pad(eq[:-1], (1, 0)) & ~F.pad(eq[1:], (0, 1))
-    col_l, row_l = pos_s[:-1] % w2, pos_s[:-1] // w2
-    col_r, row_r = pos_s[1:] % w2, pos_s[1:] // w2
-    # equal sentinels can only meet within one image, which the cross
-    # check rejects like any same-image run
-    l_is_src = col_l < w
-    src_x = torch.where(l_is_src, col_l, col_r)
-    src_y = torch.where(l_is_src, row_l, row_r)
-    tar_c = torch.where(l_is_src, col_r, col_l)
-    tar_y = torch.where(l_is_src, row_r, row_l)
-    d = src_x - (tar_c - w)
-    keep = (pair & (src_x < w) & (tar_c >= w) & (d.abs() <= disp_high)
-            & ((src_y - tar_y).abs() <= vertical_tolerance))
-    src_y = src_y + y_offset
-    r = num_rows if num_rows > 0 else h
-    c = -(-n // r)
-    padn = r * c - (n - 1)
-    pk = torch.where(keep, (((src_y << bx) | src_x) << bd) | (d + disp_high),
-                     _INT32_MAX)
-    pk_s = torch.sort(F.pad(pk, (0, padn), value=_INT32_MAX).reshape(r, c),
-                      dim=1, stable=False).values
-    counts = F.pad(keep, (0, padn)).reshape(r, c).sum(dim=1, dtype=torch.int32)
-    slot_ok = torch.arange(c, device=key.device)[None, :] < counts[:, None]
-    ds = torch.where(slot_ok, (pk_s & ((1 << bd) - 1)) - disp_high, 0)
-    xs = torch.where(slot_ok, (pk_s >> bd) & ((1 << bx) - 1), 0)
-    ys = torch.where(slot_ok, pk_s >> (bd + bx), 0)
-    return (xs, ys, ds), counts
+    with span("ogpc.gsort"):
+        if pos is None:
+            key_s, idx = torch.sort(key, stable=False)
+            pos_s = idx.to(torch.int32)
+        else:
+            key_s, pos_s = _sort_with(key, pos)
+    with span("ogpc.gdetect"):
+        eq = key_s[:-1] == key_s[1:]
+        pair = eq & ~F.pad(eq[:-1], (1, 0)) & ~F.pad(eq[1:], (0, 1))
+        col_l, row_l = pos_s[:-1] % w2, pos_s[:-1] // w2
+        col_r, row_r = pos_s[1:] % w2, pos_s[1:] // w2
+        # equal sentinels can only meet within one image, which the cross
+        # check rejects like any same-image run
+        l_is_src = col_l < w
+        src_x = torch.where(l_is_src, col_l, col_r)
+        src_y = torch.where(l_is_src, row_l, row_r)
+        tar_c = torch.where(l_is_src, col_r, col_l)
+        tar_y = torch.where(l_is_src, row_r, row_l)
+        d = src_x - (tar_c - w)
+        keep = (pair & (src_x < w) & (tar_c >= w) & (d.abs() <= disp_high)
+                & ((src_y - tar_y).abs() <= vertical_tolerance))
+        src_y = src_y + y_offset
+    with span("ogpc.gpack"):
+        r = num_rows if num_rows > 0 else h
+        c = -(-n // r)
+        padn = r * c - (n - 1)
+        keep_p = F.pad(keep, (0, padn)).reshape(r, c)
+        counts = keep_p.sum(dim=1, dtype=torch.int32)
+        col = torch.arange(c, dtype=torch.int32, device=key.device)
+        slot_ok = col[None, :] < counts[:, None]
+        # a source pixel pairs at most once, so (y, x) alone orders a
+        # segment; the other slots take their column's sentinel, the row
+        # sort's own layout, and d follows by column
+        yx = F.pad((src_y << bx) | src_x, (0, padn)).reshape(r, c)
+        yx = torch.where(keep_p, yx, SENTINEL_BASE + col)
+        if c <= MAX_N:
+            yx_s, cols = row_sort(yx)
+            cols = cols.long()
+        else:
+            yx_s, cols = torch.sort(yx, dim=1, stable=False)
+        d_s = torch.gather(F.pad(d, (0, padn)).reshape(r, c), 1, cols)
+        ds = torch.where(slot_ok, d_s, 0)
+        xs = torch.where(slot_ok, yx_s & ((1 << bx) - 1), 0)
+        ys = torch.where(slot_ok, yx_s >> bx, 0)
+        return (xs, ys, ds), counts
 
 
 def global_compact_chunks(w2: int):

@@ -251,7 +251,7 @@ class ShardedFrameSparsematch(_RowSharded):
             if not _global_rows_ok(self.mask, shape, self.settings):
                 raise ValueError(
                     "sharded global matching needs <=30-test forests and "
-                    "packable (y, x, d) keys; see infer._global_rows_ok")
+                    "(y, x) in 30 bits; see infer._global_rows_ok")
         elif not _rows_ok(self.mask, shape, self.settings):
             raise ValueError(
                 "sharded-frame matching needs <=30-test forests and a "

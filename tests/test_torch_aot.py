@@ -149,7 +149,7 @@ REFUSALS = [  # contract, epipolar, forest tests, shape, extra settings, match
     ("bogus", True, None, (H, W), {}, "contract"),
     ("global-rows", True, None, (H, W), {}, "epipolar_mode=False"),
     ("global-compact", True, None, (H, W), {}, "epipolar_mode=False"),
-    ("global-rows", False, None, (4096, 8192), {}, "packable"),
+    ("global-rows", False, None, (16384, 32768), {}, "packable"),
     ("rows", False, None, (H, W), {}, "epipolar"),
     ("masked", False, None, (H, W), {}, "epipolar"),
     ("masked-compact", True, 32, (H, W), {}, "30-test"),

@@ -98,8 +98,14 @@ def test_global_rows_guards():
     key = torch.zeros((4, 10), dtype=torch.int32)
     with pytest.raises(ValueError, match="width"):
         tmatch.match_global_rows(key, 4, 8, 1)
+    # past the 30-bit (y, x, d) pack (2 + 3 + 28 bits) the segments sort
+    # the (y, x) key alone ...
+    (xs, ys, ds), counts = tmatch.match_global_rows(key, 5, 1 << 26, 1)
+    assert xs.dtype == ys.dtype == ds.dtype == torch.int32
+    assert int(counts.sum()) == 0
+    # ... which has to fit 30 bits
     with pytest.raises(ValueError, match="30"):
-        tmatch.match_global_rows(key, 5, 1 << 26, 1)
+        tmatch.match_global_rows(key, 5, 8, 1, y_offset=1 << 30)
     left, right = make_pair(40, 80, 3)
     epi = pt.InferenceSettings(epipolar_mode=True)
     with pytest.raises(ValueError, match="global mode"):
@@ -109,9 +115,16 @@ def test_global_rows_guards():
                         ((4000, 4000), 128)]:
         js, ts = global_settings(disp_high=disp)
         jm, tm = masks("zero")
-        assert (tinfer._global_rows_ok(tm, shape, ts)
-                == jinfer._global_rows_ok(jm, shape, js))
+        # the JAX package also asks the (y, x, d) pack to fit 30 bits,
+        # which the last two miss (9 + 10 + 11 and 12 + 12 + 9) ...
+        assert jinfer._global_rows_ok(jm, shape, js) == (
+            disp == 128 and shape != (4000, 4000))
+        # ... the port asks (y, x) alone, and takes the global-rows route
+        # at every one
+        assert tinfer._global_rows_ok(tm, shape, ts)
+        assert tinfer.route(tm, shape, ts) == "global-rows"
     assert not tinfer._global_rows_ok(masks("t32")[1], (H, W), ts)
+    assert tinfer.route(masks("t32")[1], (H, W), ts) == "flat"
 
 
 def oracle_set(oracle_path, tmp_path, left, right, forest, settings):
